@@ -16,6 +16,10 @@ def pytest_configure(config):
         "sentinel: silent-corruption sentinel suite (canaries, shadow "
         "re-execution, canary-gated quarantine); runs in tier-1 AND in "
         "CI's chaos job via -m 'chaos or sentinel'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one")
 
 
 @pytest.fixture
