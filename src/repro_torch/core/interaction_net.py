@@ -7,12 +7,15 @@ Port of ``repro.core.interaction_net``.  The forward paths:
 * ``forward_sr``         — strength reduction (Sec 3.1), edge-major
   layout (Sec 3.2) and aggregation as a reshape + sum (Sec 3.3).
 * ``forward_sr_split``   — SR + bilinear first-layer split + dense grid.
+* ``forward_fused``      — the edge block (B-construct + f_R + MMM3) in
+  one hand-written CUDA kernel (``kernels/csrc/fused_jedinet_edge.cu``),
+  f_O / phi_O in plain PyTorch.
 * ``forward_fused_full`` — the whole network in ONE hand-written CUDA
-  kernel per batch (``kernels/csrc/fused_jedinet_full.cu``); on CPU
-  tensors its plain PyTorch version.
+  kernel per batch (``kernels/csrc/fused_jedinet_full.cu``).
 
-Layout: inputs are (batch, N_o, P), each node's features contiguous.
-The edge-only ``fused`` path of the reference is not ported yet.
+On CPU tensors the kernel paths run their kernels' plain PyTorch
+versions.  Layout: inputs are (batch, N_o, P), each node's features
+contiguous.
 """
 
 from __future__ import annotations
@@ -194,6 +197,43 @@ def forward_sr_split(params, cfg: JediNetConfig, x, *, grid: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# Fused path: one hand-written CUDA kernel for the edge block (Sec 3.5).
+# ---------------------------------------------------------------------------
+
+def forward_fused(params, cfg: JediNetConfig, x):
+    """JEDI-net forward with the edge block in one CUDA kernel.
+
+    The kernel computes Ebar directly from x without materializing B or
+    E in device memory (the Sec 3.5 sub-layer fusion); f_O / phi_O stay
+    plain PyTorch, as the reference leaves them to XLA.  ``params`` are
+    raw MLP params or the bound form from :func:`_bind_edge` (f_R packed
+    for the kernel).  On CPU tensors the kernel's plain version runs.
+    """
+    from repro_torch.kernels.fused_jedinet import ops as fused_ops
+    cdt = _cdt(cfg)
+    x = x.to(cdt)
+    ebar = fused_ops.fused_edge_block(params["fr"], cfg, x)
+    c = torch.cat([x, ebar.to(cdt)], dim=-1)
+    o = nn.mlp_apply(params["fo"], c, activation=cfg.activation,
+                     compute_dtype=cdt)
+    o_sum = nn.sum_upcast(o, -2)
+    logits = nn.mlp_apply(params["phi"], o_sum, activation=cfg.activation,
+                          compute_dtype=cdt)
+    return logits.float()
+
+
+def _bind_edge(params, cfg):
+    """The params with f_R bound for the edge kernel (f_O / phi_O kept)."""
+    from repro_torch.kernels.fused_jedinet import ops as fused_ops
+    return dict(params, fr=fused_ops.bind_edge(params["fr"], cfg))
+
+
+def _edge_layout(cfg, params):
+    from repro_torch.kernels.fused_jedinet import autotune
+    return autotune.edge_layout_for(cfg, params)
+
+
+# ---------------------------------------------------------------------------
 # Whole-network fused path: one hand-written CUDA kernel (x -> logits).
 # ---------------------------------------------------------------------------
 
@@ -235,6 +275,14 @@ paths.register(paths.PathSpec(
     fused_level="none", tolerance=2e-4,
     complexity="O(N^2)", fallback=None,
     description="SR + bilinear first-layer split + dense grid (torch)"))
+paths.register(paths.PathSpec(
+    name="fused", forward=forward_fused, ref=forward_sr,
+    fused_level="edge", cuda=True, tolerance=5e-4,
+    bind_params=_bind_edge,
+    per_sample_bytes=lambda cfg, p: _edge_layout(cfg, p).per_event_bytes,
+    reserved_bytes=lambda cfg, p: _edge_layout(cfg, p).reserved_bytes,
+    complexity="O(N^2)", fallback="sr",
+    description="edge-block CUDA kernel: B-construct + f_R + MMM3 on-chip"))
 paths.register(paths.PathSpec(
     name="fused_full", forward=forward_fused_full, ref=forward_sr,
     fused_level="full", cuda=True, tolerance=5e-4,

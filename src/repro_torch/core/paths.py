@@ -55,6 +55,8 @@ class PathSpec:
     tolerance: float = 2e-4                 # max |forward - ref| in fp32
     quantized: bool = False                 # tag: weights are sub-fp32
     weight_bytes: int | None = None         # weight precision in device memory
+    per_sample_bytes: Callable | None = None   # (cfg, params) -> smem B/event
+    reserved_bytes: Callable | None = None  # (cfg, params) -> smem B/block
     fallback: str | None = None             # degrade-to path (fallback_chain)
     complexity: str = "O(N^2)"              # aggregation class
     description: str = ""
@@ -88,15 +90,21 @@ class PathSpec:
         return compute_dtype in self.compute_dtypes
 
     def bucket_bytes(self, cfg, params) -> int:
-        """Per-event shared-memory bytes of the whole-network kernel,
-        which drives the serving bucket ladder."""
+        """Per-event shared-memory bytes of the path's kernel, which
+        drive the serving bucket ladder: the ``per_sample_bytes`` hook,
+        else the whole-network kernel's (B1) layout."""
+        if self.per_sample_bytes is not None:
+            return int(self.per_sample_bytes(cfg, params))
         from repro_torch.kernels.fused_jedinet import autotune
         return autotune.layout_for(cfg, params).per_event_bytes
 
     def reserved_smem_bytes(self, cfg, params) -> int:
         """Shared memory a block spends before its first event: the
-        weights (upcast to fp32 as they land) and the per-team scratch.
-        ``params`` must already be transformed (:meth:`prepare_params`)."""
+        weights (upcast to fp32 as they land) and the per-team scratch;
+        the ``reserved_bytes`` hook, else B1's layout.  ``params`` must
+        already be transformed (:meth:`prepare_params`)."""
+        if self.reserved_bytes is not None:
+            return int(self.reserved_bytes(cfg, params))
         from repro_torch.kernels.fused_jedinet import autotune
         return autotune.layout_for(cfg, params).reserved_bytes
 
@@ -121,6 +129,7 @@ _REGISTRY: dict[str, PathSpec] = {}
 _BUILTIN_MODULES = (
     "repro_torch.core.interaction_net",
     "repro_torch.core.int8_path",
+    "repro_torch.core.jedi_linear_path",
 )
 _builtins_state = "pending"           # "pending" -> "loading" -> "done"
 

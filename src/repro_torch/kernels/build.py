@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each kernel is a ``.cu`` file under ``kernels/csrc/`` with a plain C
-interface (no PyTorch headers, so ``nvcc`` takes seconds, not minutes).
-At first use it is compiled into ``build/kernels/`` at the root of the
-checkout, under a file name keyed on a hash of its sources and flags, so
-an edit rebuilds it and an unchanged source is reused.  ``nvcc`` is
+interface (no PyTorch headers, so ``nvcc`` takes seconds, not minutes);
+the kernels share device code through the ``.cuh`` headers beside them.
+At first use a kernel is compiled into ``build/kernels/`` at the root of
+the checkout, under a file name keyed on a hash of its sources, the
+headers and the flags, so an edit rebuilds it and an unchanged source is
+reused.  ``nvcc`` is
 looked up on ``PATH``, then under ``CUDA_HOME`` / ``CUDA_PATH``, then in
 ``/usr/local/cuda``; a missing ``nvcc`` raises with that list.
 """
@@ -45,9 +47,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: tuple[str, ...]) -> pathlib.Path:
-    """Where the library of ``sources`` lives, keyed on their content."""
+    """Where the library of ``sources`` lives, keyed on their content and
+    that of every header in ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for src in (*sources, *headers):
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

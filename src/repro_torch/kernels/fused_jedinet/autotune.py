@@ -1,9 +1,12 @@
-"""Shared-memory layout and launch choice of the whole-network kernel.
+"""Shared-memory layouts and launch choices of the JEDI-net kernels.
 
-The CUDA kernel (``kernels/csrc/fused_jedinet_full.cu``) gives one
-block ``events_per_block`` whole events.  Everything a block touches
-lives in its dynamic shared memory, in the regions below (fp32 words,
-every region a multiple of 4 words so ``float4`` loads stay aligned):
+Two CUDA kernels share this model: the whole network
+(``kernels/csrc/fused_jedinet_full.cu``, B1) and the edge block alone
+(``kernels/csrc/fused_jedinet_edge.cu``, B3, which stops at Ebar and has
+no f_O / phi_O regions).  Each gives one block ``events_per_block``
+whole events.  Everything a block touches lives in its dynamic shared
+memory, in the regions below (fp32 words, every region a multiple of 4
+words so ``float4`` loads stay aligned):
 
 ===========  =============================  ============================
 region       words                           holds
@@ -14,8 +17,8 @@ region       words                           holds
 ``ebar``     E * N_o * De_p                  the sender sums
 ``part``     E * N_o * KS * De_p             per-split partial sums
 ``us``       E * S * H1_p                    u_s of one sender tile
-``obuf``     E * N_o * Do_p                  f_O outputs per node
-``osum``     E * Do_p                        node sums
+``obuf``     E * N_o * Do_p                  f_O outputs per node (B1)
+``osum``     E * Do_p                        node sums (B1)
 ``slot``     teams * slot_stride             per-team activation buffers
 ===========  =============================  ============================
 
@@ -48,7 +51,8 @@ from repro_torch.kernels.autotune import (
 THREADS_TARGET = 256
 
 
-def _r4(n: int) -> int:
+def pad4(n: int) -> int:
+    """``n`` rounded up to a multiple of 4 words (one ``float4``)."""
     return -(-int(n) // 4) * 4
 
 
@@ -64,21 +68,23 @@ class Entry:
     b_off: int          # word offset of its bias in ``b``; -1: no bias
 
 
-def kernel_entries(n_features: int, fr_widths, fo_widths,
-                   phi_widths) -> list[Entry]:
-    """Entries in kernel order: w1r, w1s, f_R rest, f_O, phi_O."""
+def kernel_entries(n_features: int, fr_widths, fo_widths=(),
+                   phi_widths=()) -> list[Entry]:
+    """Entries in kernel order: w1r, w1s, f_R rest, f_O, phi_O (f_R's
+    alone for the edge block: no ``fo_widths`` / ``phi_widths``)."""
     p, d_e = n_features, fr_widths[-1]
     dims = [(p, fr_widths[0], True), (p, fr_widths[0], False)]
     dims += [(i, o, True) for i, o in zip(fr_widths[:-1], fr_widths[1:])]
     fo_in = [p + d_e, *fo_widths[:-1]]
     dims += [(i, o, True) for i, o in zip(fo_in, fo_widths)]
-    phi_in = [fo_widths[-1], *phi_widths[:-1]]
-    dims += [(i, o, True) for i, o in zip(phi_in, phi_widths)]
+    if phi_widths:
+        phi_in = [fo_widths[-1], *phi_widths[:-1]]
+        dims += [(i, o, True) for i, o in zip(phi_in, phi_widths)]
     out, w_off, b_off = [], 0, 0
     for i, o, biased in dims:
-        out.append(Entry(i, o, _r4(o), w_off, b_off if biased else -1))
-        w_off += i * _r4(o)
-        b_off += _r4(o) if biased else 0
+        out.append(Entry(i, o, pad4(o), w_off, b_off if biased else -1))
+        w_off += i * pad4(o)
+        b_off += pad4(o) if biased else 0
     return out
 
 
@@ -116,15 +122,17 @@ def team_size(mw: int) -> int:
 
 
 def _layout(n_o, p, entries, d_e, d_o, epb, bs, ks, team, threads) -> Layout:
-    h1_p, de_p, do_p = entries[0].out_p, _r4(d_e), _r4(d_o)
-    mw = _r4(max(max(e.out_p for e in entries), p + d_e, d_o))
+    """``d_o = 0``: the edge block (no C, f_O or phi_O)."""
+    h1_p, de_p, do_p = entries[0].out_p, pad4(d_e), pad4(d_o)
+    mw = pad4(max(max(e.out_p for e in entries),
+                 p + d_e if d_o else 0, d_o))
     slot_stride = 2 * mw + h1_p
     slot_stride += 1 - slot_stride % 2          # odd: conflict-free slots
     w_words = sum(e.in_dim * e.out_p for e in entries)
-    b_words = _r4(sum(e.out_p for e in entries if e.b_off >= 0))
+    b_words = pad4(sum(e.out_p for e in entries if e.b_off >= 0))
     regions = [
         ("w", w_words), ("b", b_words),
-        ("x", _r4(epb * n_o * p)), ("ebar", epb * n_o * de_p),
+        ("x", pad4(epb * n_o * p)), ("ebar", epb * n_o * de_p),
         ("part", epb * n_o * ks * de_p), ("us", epb * bs * h1_p),
         ("obuf", epb * n_o * do_p), ("osum", epb * do_p),
         ("slot", (threads // team) * slot_stride),
@@ -140,14 +148,15 @@ def _layout(n_o, p, entries, d_e, d_o, epb, bs, ks, team, threads) -> Layout:
                   offsets, off, 4 * per_event, 4 * reserved)
 
 
-def plan_launch(n_objects: int, n_features: int, fr_widths, fo_widths,
-                phi_widths, *, block_s: int | None = None,
+def plan_launch(n_objects: int, n_features: int, fr_widths, fo_widths=(),
+                phi_widths=(), *, block_s: int | None = None,
                 budget_bytes: int = SMEM_BLOCK_BYTES) -> Layout:
     """Choose (events per block, sender tile, splits, team, threads) and
-    lay out shared memory; raises ``ValueError`` when nothing fits."""
+    lay out shared memory; raises ``ValueError`` when nothing fits.
+    Without ``fo_widths`` / ``phi_widths``: the edge block's launch."""
     n_o, p = int(n_objects), int(n_features)
     entries = kernel_entries(p, fr_widths, fo_widths, phi_widths)
-    d_e, d_o = fr_widths[-1], fo_widths[-1]
+    d_e, d_o = fr_widths[-1], (fo_widths[-1] if fo_widths else 0)
     probe = _layout(n_o, p, entries, d_e, d_o, 1, 1, 1, 1, WARP)
     team = team_size(probe.mw)
     if block_s is not None:
@@ -172,8 +181,9 @@ def plan_launch(n_objects: int, n_features: int, fr_widths, fo_widths,
                 ks //= 2
             else:
                 break
+    kernel = "whole-network" if fo_widths else "edge-block"
     raise ValueError(
-        f"no launch of the whole-network kernel fits {budget_bytes} bytes "
+        f"no launch of the {kernel} kernel fits {budget_bytes} bytes "
         f"of shared memory at N_o={n_o}, P={p}, widths fr={list(fr_widths)} "
         f"fo={list(fo_widths)} phi={list(phi_widths)}, block_s={block_s}")
 
@@ -183,3 +193,10 @@ def layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
     return plan_launch(cfg.n_objects, cfg.n_features,
                        mlp_widths(params["fr"]), mlp_widths(params["fo"]),
                        mlp_widths(params["phi"]), block_s=block_s)
+
+
+def edge_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
+    """:func:`plan_launch` of the edge block for a config and its params
+    (only f_R's widths count)."""
+    return plan_launch(cfg.n_objects, cfg.n_features,
+                       mlp_widths(params["fr"]), block_s=block_s)

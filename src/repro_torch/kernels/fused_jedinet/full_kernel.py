@@ -14,9 +14,16 @@ and what bounds it).  This module holds, side by side:
 * :func:`fused_forward_full_plain` — the same function in plain PyTorch,
   with the kernel's sender tiling and self-edge masking: the CPU tests
   use it, and ``chip_smoke.py`` holds the kernel against it on the card.
+  Its pieces (:func:`edge_sum_plain`, :func:`readout_plain`,
+  :func:`mlp_plain`) are the plain versions of the edge block (B3) and
+  of JEDI-linear's tail (B2) too.
 * :class:`KernelWeights` — the weights split, flattened and packed once
   (one weight buffer in its own dtype, one fp32 bias buffer, the int8
-  scales), so a served batch only launches.
+  scales), so a served batch only launches.  B2 reads the same packed
+  buffers; B3 packs f_R alone.
+* :func:`load_launcher`, :func:`runs_plain` and :func:`launch` — the
+  ctypes binding, input checks and launch shared by the three kernels,
+  which read one launch header (:data:`HEADER_FIELDS`).
 
 Precision: ``x.dtype`` is the compute dtype.  In bf16 every operand of a
 product is rounded to bf16, sums stay fp32 and biases stay fp32; int8
@@ -37,17 +44,23 @@ from repro_torch.nn.core import ACTIVATIONS
 LIB_NAME = "fused_jedinet_full"
 SOURCES = ("fused_jedinet_full.cu",)
 
-#: The kernel's launch header, in the order of ``JEDI_HEADER_FIELDS`` in
-#: the CUDA source (a CPU test keeps the two in step).
+#: The launch header of the port's JEDI kernels (B1, B2, B3), in the order
+#: of ``JEDI_HEADER_FIELDS`` in ``kernels/csrc/jedi_common.cuh`` (a CPU
+#: test keeps the two in step).
 HEADER_FIELDS = (
     "x_bf16", "w_kind", "compute_bf16", "act", "quant",
     "batch", "n_o", "p", "d_e", "d_o", "n_targets",
     "n_fr", "n_fo", "n_phi",
     "epb", "bs", "ks", "team", "threads", "mw", "slot_stride",
     "off_w", "off_b", "off_x", "off_ebar", "off_part", "off_us", "off_obuf",
-    "off_osum", "off_slot",
+    "off_osum", "off_slot", "off_pool",
     "w_total", "b_total", "h1_p", "de_p", "do_p", "smem_words",
 )
+
+#: Shared-memory regions whose word offsets the header carries; a kernel's
+#: layout leaves out the regions it does not have (offset 0, unused).
+_REGIONS = ("w", "b", "x", "ebar", "part", "us", "obuf", "osum", "slot",
+            "pool")
 
 #: Activation name -> the kernel's code (the order of ``ACTIVATIONS``).
 ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
@@ -95,7 +108,7 @@ def mlp_scales(params) -> list:
     return [lp["w_scale"] for lp in params["layers"]]
 
 
-def _mmq(h, w, scale, bf16: bool):
+def mmq(h, w, scale, bf16: bool):
     """``h @ w`` with fp32 sums; bf16 rounds both operands first; an int8
     weight's ``scale`` multiplies the fp32 result."""
     wf = w.float()
@@ -104,6 +117,61 @@ def _mmq(h, w, scale, bf16: bool):
         wf = wf.to(torch.bfloat16).float()
     out = h @ wf
     return out if scale is None else out * scale
+
+
+def mlp_plain(h, arrays, scales, act, bf16: bool):
+    """Layers ``[w0, b0, w1, b1, ...]`` on ``h`` as the kernels run them:
+    :func:`mmq`, the fp32 bias, ``act`` between layers and none after
+    the last; ``scales`` one per layer (None: not int8)."""
+    n = len(arrays) // 2
+    for li in range(n):
+        h = mmq(h, arrays[2 * li], scales[li], bf16) + arrays[2 * li + 1]
+        if li < n - 1:
+            h = act(h)
+    return h
+
+
+def edge_sum_plain(xf, fr_arrays, scales, act, bf16: bool,
+                   block_s: int | None = None):
+    """Ebar = sum over senders s != r of f_R(x_r || x_s): (B, N_o, D_e).
+
+    The kernels' edge block in plain PyTorch: ``xf`` the (B, N_o, P)
+    events in fp32 (holding compute-dtype values); f_R's first layer
+    split into ``u_r`` / ``u_s`` (``fr_arrays = [w1r, w1s, b1, w2, b2,
+    ...]``, ``scales`` one per weight tensor, None: not int8); senders
+    taken ``block_s`` at a time (all at once by default); the self-edge
+    masked out before the sum.
+    """
+    w1r, w1s, b1, rest = fr_arrays[0], fr_arrays[1], fr_arrays[2], \
+        fr_arrays[3:]
+    bsz, n_o, _ = xf.shape
+    bs = n_o if block_s is None else max(1, min(int(block_s), n_o))
+    u_r = mmq(xf, w1r, scales[0], bf16)                     # (B, N_o, H1)
+    d_e = (rest[-2] if rest else w1r).shape[-1]
+    acc = xf.new_zeros((bsz, n_o, d_e))
+    recv = torch.arange(n_o, device=xf.device)[:, None]
+    for s0 in range(0, n_o, bs):
+        xs = xf[:, s0:s0 + bs]
+        u_s = mmq(xs, w1s, scales[1], bf16)                 # (B, S, H1)
+        h = u_r[:, :, None, :] + u_s[:, None, :, :] + b1.float()
+        if rest:
+            h = mlp_plain(act(h), rest, scales[2:], act, bf16)
+        send = torch.arange(s0, s0 + xs.shape[1], device=xf.device)[None, :]
+        keep = (recv != send)[None, :, :, None]
+        acc = acc + torch.where(keep, h, torch.zeros_like(h)).sum(2)
+    return acc
+
+
+def readout_plain(xf, ebar, fo_arrays, phi_arrays, s_fo, s_phi, act,
+                  bf16: bool):
+    """C = [x || Ebar], f_O per node, the node sum, phi_O: logits fp32."""
+    h = mlp_plain(torch.cat([xf, ebar], dim=-1), fo_arrays, s_fo, act, bf16)
+    return mlp_plain(h.sum(1), phi_arrays, s_phi, act, bf16).float()
+
+
+def plain_scales(scales, n_weights: int) -> list:
+    """``scales`` as a list, or ``n_weights`` Nones when not int8."""
+    return list(scales) if scales is not None else [None] * n_weights
 
 
 def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
@@ -118,45 +186,14 @@ def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
     """
     bf16 = x.dtype == torch.bfloat16
     act = ACTIVATIONS[activation]
-    n_fr = 1 + (len(fr_arrays) - 3) // 2
-    n_fo, n_phi = len(fo_arrays) // 2, len(phi_arrays) // 2
-    s = list(scales) if scales is not None \
-        else [None] * (n_fr + 1 + n_fo + n_phi)
-    w1r, w1s, b1, rest = fr_arrays[0], fr_arrays[1], fr_arrays[2], \
-        fr_arrays[3:]
+    n_fr_w = 2 + (len(fr_arrays) - 3) // 2        # w1r, w1s, w2, ...
+    n_fo = len(fo_arrays) // 2
+    s = plain_scales(scales, n_fr_w + n_fo + len(phi_arrays) // 2)
     xf = x.float()
-    bsz, n_o, _ = x.shape
-    bs = n_o if block_s is None else max(1, min(int(block_s), n_o))
-    u_r = _mmq(xf, w1r, s[0], bf16)                          # (B, N_o, H1)
-    d_e = (rest[-2] if rest else w1r).shape[-1]
-    acc = xf.new_zeros((bsz, n_o, d_e))
-    recv = torch.arange(n_o, device=x.device)[:, None]
-    for s0 in range(0, n_o, bs):
-        xs = xf[:, s0:s0 + bs]
-        u_s = _mmq(xs, w1s, s[1], bf16)                      # (B, S, H1)
-        h = u_r[:, :, None, :] + u_s[:, None, :, :] + b1.float()
-        if n_fr > 1:
-            h = act(h)
-        for li in range(n_fr - 1):
-            h = _mmq(h, rest[2 * li], s[2 + li], bf16) + rest[2 * li + 1]
-            if li < n_fr - 2:
-                h = act(h)
-        send = torch.arange(s0, s0 + xs.shape[1], device=x.device)[None, :]
-        keep = (recv != send)[None, :, :, None]
-        acc = acc + torch.where(keep, h, torch.zeros_like(h)).sum(2)
-    h = torch.cat([xf, acc], dim=-1)
-    for li in range(n_fo):
-        h = _mmq(h, fo_arrays[2 * li], s[n_fr + 1 + li], bf16) \
-            + fo_arrays[2 * li + 1]
-        if li < n_fo - 1:
-            h = act(h)
-    h = h.sum(1)                                             # (B, D_o)
-    for li in range(n_phi):
-        h = _mmq(h, phi_arrays[2 * li], s[n_fr + 1 + n_fo + li], bf16) \
-            + phi_arrays[2 * li + 1]
-        if li < n_phi - 1:
-            h = act(h)
-    return h.float()
+    ebar = edge_sum_plain(xf, fr_arrays, s[:n_fr_w], act, bf16, block_s)
+    return readout_plain(xf, ebar, fo_arrays, phi_arrays,
+                         s[n_fr_w:n_fr_w + n_fo], s[n_fr_w + n_fo:], act,
+                         bf16)
 
 
 @dataclasses.dataclass
@@ -220,37 +257,34 @@ class KernelWeights:
         self.bpack = b.contiguous()
         return self
 
-    def launch_header(self, n_o: int, n_targets: int, block_s):
-        """(layout, header values without batch/x dtype) for one shape;
-        cached, so a served batch does no layout work."""
-        key = (n_o, n_targets, block_s)
+    def launch_header(self, key: tuple, plan, n_o: int, n_targets: int):
+        """(layout, header values without batch / x dtype / activation,
+        entry ints, ctypes scales) of one launch shape, cached under
+        ``key`` so a served batch does no layout work.  ``plan()`` gives
+        the kernel's :class:`~repro_torch.kernels.fused_jedinet.autotune.Layout`."""
         hit = self._launch_cache.get(key)
         if hit is not None:
             return hit
         fr_w, fo_w, phi_w = self.widths()
-        if phi_w[-1] != n_targets:
+        if phi_w and phi_w[-1] != n_targets:
             raise ValueError(f"phi_O has {phi_w[-1]} outputs, not "
                              f"n_targets={n_targets}")
-        lay = autotune.plan_launch(n_o, self.n_features, fr_w, fo_w, phi_w,
-                                   block_s=block_s)
+        lay = plan()
         entries = autotune.kernel_entries(self.n_features, fr_w, fo_w, phi_w)
-        o = lay.offsets
+        d_o = fo_w[-1] if fo_w else 0
         head = dict(
-            w_kind=_W_KINDS[self.fr[0].dtype], act=0,
+            w_kind=_W_KINDS[self.fr[0].dtype],
             quant=int(self.scales is not None), n_o=n_o, p=self.n_features,
-            d_e=fr_w[-1], d_o=fo_w[-1], n_targets=n_targets,
+            d_e=fr_w[-1], d_o=d_o, n_targets=n_targets,
             n_fr=len(fr_w) + 1, n_fo=len(fo_w), n_phi=len(phi_w),
             epb=lay.events_per_block, bs=lay.block_s, ks=lay.ks,
             team=lay.team, threads=lay.threads, mw=lay.mw,
             slot_stride=lay.slot_stride,
-            off_w=o["w"], off_b=o["b"], off_x=o["x"], off_ebar=o["ebar"],
-            off_part=o["part"], off_us=o["us"], off_obuf=o["obuf"],
-            off_osum=o["osum"], off_slot=o["slot"],
+            **{f"off_{r}": lay.offsets.get(r, 0) for r in _REGIONS},
             w_total=sum(e.in_dim * e.out_p for e in entries),
             b_total=int(self.bpack.numel()) if self.bpack is not None else 0,
             h1_p=entries[0].out_p, de_p=entries[len(fr_w)].out_p,
-            do_p=entries[len(fr_w) + len(fo_w)].out_p,
-            smem_words=lay.smem_words)
+            do_p=autotune.pad4(d_o), smem_words=lay.smem_words)
         ent = [v for e in entries
                for v in (e.in_dim, e.out_dim, e.out_p, e.w_off, e.b_off)]
         scales = [float(s) for s in self.scales] if self.scales is not None \
@@ -260,32 +294,31 @@ class KernelWeights:
         return hit
 
 
-def _lib():
-    lib = build.load_library(LIB_NAME, SOURCES)
-    fn = lib.jedi_fused_full_launch
+def load_launcher(lib_name: str, sources: tuple, symbol: str):
+    """The ``<symbol>_launch`` C function of a kernel library (built at
+    first use), with its ctypes signature set and its header length
+    checked against :data:`HEADER_FIELDS`."""
+    lib = build.load_library(lib_name, sources)
+    fn = getattr(lib, f"{symbol}_launch")
     if fn.argtypes is None:
+        header_len = getattr(lib, f"{symbol}_header_len")
+        header_len.restype = ctypes.c_int
+        n = header_len()
+        if n != len(HEADER_FIELDS):
+            raise RuntimeError(f"{symbol}: kernel header has {n} fields, the "
+                               f"wrapper {len(HEADER_FIELDS)}: rebuild in step")
         fn.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.jedi_fused_full_header_len.restype = ctypes.c_int
-        n = lib.jedi_fused_full_header_len()
-        if n != len(HEADER_FIELDS):
-            raise RuntimeError(f"kernel header has {n} fields, the wrapper "
-                               f"{len(HEADER_FIELDS)}: rebuild in step")
-    return lib
+    return fn
 
 
-def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
-                                   *, activation: str, n_targets: int,
-                                   block_s: int | None = None):
-    """x: (B, N_o, P) fp32 or bf16 (the compute dtype) -> logits (B, T) fp32.
-
-    CUDA tensors launch the kernel (no batch padding: the kernel masks
-    the ragged last block); CPU tensors run :func:`fused_forward_full_plain`.
-    ``block_s`` pins the sender tile (default: the autotuner's choice).  Raises on shapes, types or devices the kernel
-    does not take.
-    """
+def runs_plain(x: torch.Tensor, weights: KernelWeights,
+               activation: str) -> bool:
+    """Check x against what the kernels take; True for a CPU tensor (the
+    caller runs the plain version), False for a CUDA tensor (the caller
+    launches).  Raises on anything else."""
     if x.dim() != 3 or x.shape[2] != weights.n_features:
         raise ValueError(f"x must be (B, N_o, {weights.n_features}); "
                          f"got {tuple(x.shape)}")
@@ -297,33 +330,61 @@ def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
         raise ValueError(f"x is on {x.device}, the weights on "
                          f"{weights.device}")
     if x.device.type == "cpu":
-        return fused_forward_full_plain(
-            x, weights.fr, weights.fo, weights.phi, activation=activation,
-            scales=weights.scales, block_s=block_s)
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, not {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    weights.pack()
-    _, head, ent, scales = weights.launch_header(
-        x.shape[1], n_targets, block_s)
+    return False
+
+
+def launch(fn, symbol: str, x: torch.Tensor, weights: KernelWeights,
+           out: torch.Tensor, launch_header, activation: str) -> None:
+    """Launch ``fn`` (from :func:`load_launcher`) on the current stream
+    with ``launch_header`` from :meth:`KernelWeights.launch_header`;
+    raises on a non-zero ``cudaError_t``."""
+    _, head, ent, scales = launch_header
     bf16 = int(x.dtype == torch.bfloat16)
     vals = dict(head, x_bf16=bf16, compute_bf16=bf16,
                 act=ACT_CODES[activation], batch=x.shape[0])
     meta_list = [vals[f] for f in HEADER_FIELDS] + ent
     meta = (ctypes.c_int * len(meta_list))(*meta_list)
-    out = torch.empty((x.shape[0], n_targets), dtype=torch.float32,
-                      device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().jedi_fused_full_launch(
-        x.data_ptr(), weights.wpack.data_ptr(), weights.bpack.data_ptr(),
-        out.data_ptr(), meta, len(meta_list), scales, stream)
+    err = fn(x.data_ptr(), weights.wpack.data_ptr(), weights.bpack.data_ptr(),
+             out.data_ptr(), meta, len(meta_list), scales, stream)
     if err != 0:
         raise RuntimeError(
-            f"jedi_fused_full_launch failed: cudaError_t {err} "
+            f"{symbol}_launch failed: cudaError_t {err} "
             f"({torch.cuda.get_device_name(x.device)}, batch {x.shape[0]}, "
             f"N_o {x.shape[1]}, {head['threads']} threads, "
             f"{4 * head['smem_words']} B shared memory)")
+
+
+def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
+                                   *, activation: str, n_targets: int,
+                                   block_s: int | None = None):
+    """x: (B, N_o, P) fp32 or bf16 (the compute dtype) -> logits (B, T) fp32.
+
+    CUDA tensors launch the kernel (no batch padding: the kernel masks
+    the ragged last block); CPU tensors run :func:`fused_forward_full_plain`.
+    ``block_s`` pins the sender tile (default: the autotuner's choice).
+    Raises on shapes, types or devices the kernel does not take.
+    """
+    if runs_plain(x, weights, activation):
+        return fused_forward_full_plain(
+            x, weights.fr, weights.fo, weights.phi, activation=activation,
+            scales=weights.scales, block_s=block_s)
+    weights.pack()
+    n_o = x.shape[1]
+    header = weights.launch_header(
+        ("full", n_o, n_targets, block_s),
+        lambda: autotune.plan_launch(n_o, weights.n_features,
+                                     *weights.widths(), block_s=block_s),
+        n_o, n_targets)
+    out = torch.empty((x.shape[0], n_targets), dtype=torch.float32,
+                      device=x.device)
+    launch(load_launcher(LIB_NAME, SOURCES, "jedi_fused_full"),
+           "jedi_fused_full", x, weights, out, header, activation)
     fused_forward_full_kernel_call.launches += 1
     return out
 

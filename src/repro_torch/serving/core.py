@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import autotune
 from repro_torch.serving.metrics import ServingMetrics, kgps
 
@@ -179,16 +180,18 @@ class Workload:
 
 
 def serve_stream(fwd, stream, *, warmup: int = 2, metrics=None, bucket=None,
-                 device="cpu"):
+                 device="cuda"):
     """Double-buffered device-feed loop; returns (latencies, events, wall).
 
     ``fwd`` is an async-dispatch callable on device tensors; latencies
-    are seconds from host handoff to logits ready.  On CUDA, batch k+1's
-    pinned H2D copy is issued on a side stream while batch k computes.
-    The first ``warmup`` batches are excluded from the stats; a stream no
-    longer than ``warmup`` yields empty stats, not a crash.
+    are seconds from host handoff to logits ready.  On CUDA (the
+    default; raises without a card), batch k+1's pinned H2D copy is
+    issued on a side stream while batch k computes; ``device="cpu"``
+    feeds the CPU.  The first ``warmup`` batches are excluded from the
+    stats; a stream no longer than ``warmup`` yields empty stats, not a
+    crash.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     put = _DoubleBuffer(device).put if device.type == "cuda" \
         else (lambda a: to_device(a, device))
     latencies = []

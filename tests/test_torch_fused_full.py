@@ -131,8 +131,12 @@ def test_cpu_tensors_never_touch_the_kernel():
 
 
 def test_header_fields_match_the_cuda_source():
-    src = (REPO / "src/repro_torch/kernels/csrc/fused_jedinet_full.cu"
-           ).read_text()
+    """B1's source and the device code it includes (the header fields and
+    the activation codes live in ``jedi_common.cuh``, shared with B2/B3)."""
+    csrc = REPO / "src/repro_torch/kernels/csrc"
+    src = (csrc / "fused_jedinet_full.cu").read_text()
+    assert '#include "jedi_common.cuh"' in src
+    src += (csrc / "jedi_common.cuh").read_text()
     block = src[src.index("HEADER-FIELDS-BEGIN"):
                 src.index("HEADER-FIELDS-END")]
     fields = re.findall(r"F\((\w+)\)", block)

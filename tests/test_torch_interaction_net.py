@@ -120,15 +120,20 @@ def test_configs_match_reference():
         assert ref.MODEL.__dict__ == port.MODEL.__dict__
 
 
-PORTED = ["dense", "sr", "sr_split", "fused_full", "int8_fused_full"]
+PORTED = ["dense", "sr", "sr_split", "fused", "fused_full",
+          "int8_fused_full", "jedi_linear", "jedi_linear_full",
+          "int8_jedi_linear_full"]
 
 
 def test_registry_holds_the_ported_paths():
-    assert tpaths.available() == sorted(PORTED)
-    assert tpaths.available(cuda=True) == ["fused_full", "int8_fused_full"]
-    assert tpaths.available(quantized=True) == ["int8_fused_full"]
+    assert tpaths.available() == sorted(PORTED) == jpaths.available()
+    assert tpaths.available(cuda=True) == [
+        "fused", "fused_full", "int8_fused_full", "int8_jedi_linear_full",
+        "jedi_linear_full"]
+    assert tpaths.available(quantized=True) == ["int8_fused_full",
+                                                "int8_jedi_linear_full"]
     with pytest.raises(ValueError, match="available"):
-        tpaths.get("fused")                      # not ported yet
+        tpaths.get("fused_edge")
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -107,7 +107,7 @@ def test_engine_rejects_unsupported_dtype_and_unknown_path(small):
         ServingEngine(params, cfg.with_(compute_dtype="bfloat16"),
                       forward="int8_fused_full", device="cpu")
     with pytest.raises(ValueError, match="unknown forward path"):
-        ServingEngine(params, cfg, forward="fused", device="cpu")
+        ServingEngine(params, cfg, forward="fused_edge", device="cpu")
 
 
 def test_sentinel_is_not_ported_yet(small):
@@ -238,9 +238,20 @@ def test_serve_stream_warmup_and_metrics():
     m = ServingMetrics()
     lat, ev, wall = serve_stream(lambda x: x * 2,
                                  [np.ones((4, 2), np.float32)] * 5,
-                                 warmup=2, metrics=m)
+                                 warmup=2, metrics=m, device="cpu")
     assert len(lat) == 3 and ev == 12 and wall > 0 and m.batches == 3
-    assert serve_stream(lambda x: x, [np.ones((1, 1))], warmup=3)[0] == []
+    assert serve_stream(lambda x: x, [np.ones((1, 1))], warmup=3,
+                        device="cpu")[0] == []
+
+
+def test_serve_stream_defaults_to_the_card():
+    import inspect
+    assert inspect.signature(serve_stream).parameters["device"].default \
+        == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_stream(lambda x: x, [np.ones((1, 1), np.float32)])
 
 
 # -- the CLI --------------------------------------------------------------
