@@ -6,7 +6,7 @@ Drives the port (``src/repro_torch``) only, on one CUDA card, and exits
 non-zero on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), the torch, CUDA and
-   ``nvcc`` versions, and the kernels' build from the sources in the
+   ``nvcc`` versions, and the five kernels' build from the sources in the
    checkout (one ``nvcc`` per source, all started together), with each
    kernel's registers and spills;
 2. every kernel against its plain PyTorch version on the card, and two
@@ -16,16 +16,33 @@ non-zero on any failure:
      int8, jedi_50p (B1), jedi_tracks_128, every activation;
    * B3 ``fused_jedinet_edge``: jedi_30p in fp32 and bf16, jedi_50p and
      jedi_tracks_128;
-3. the main paths through ``ResilientEngine``: ``fused_full`` and
-   ``int8_fused_full`` (B1), ``jedi_linear_full`` at jedi_30p and
-   jedi_tracks_128 and ``int8_jedi_linear_full`` (B2), and ``fused``
-   (B3), each serving a stream of 256-event batches and a few requests
-   with no demotion, no failure counter, the path's kernel launched for
-   every served batch (all launch counts set to 0 just before the path
-   is driven and read just after), and the served logits equal to the
-   path's reference on the card;
-4. each kernel's time at jedi_30p, 256 events, beside its plain
-   version's time and its bound.
+   * B4 ``fm_interaction``: unit-normal v in fp32 and bf16 at B = 1, 7,
+     513 and 262,144 (F=39, K=10, the ``fm`` config) and at F=26, K=16;
+   * B5 ``flash_decode``: the reference's three sweep shapes, D=80 at
+     G=4, a sliding window, a bf16 cache, S not a multiple of the tile
+     and a row with no valid key;
+3. the main paths, each with all launch counts set to 0 just before it
+   is driven and read just after:
+   * ``fused_full`` and ``int8_fused_full`` (B1), ``jedi_linear_full``
+     at jedi_30p and jedi_tracks_128 and ``int8_jedi_linear_full`` (B2),
+     and ``fused`` (B3) through ``ResilientEngine``, each serving a
+     stream of 256-event batches and a few requests with no demotion, no
+     failure counter, the path's kernel launched for every served batch,
+     and the served logits equal to the path's reference on the card;
+   * FM scoring at the full ``fm`` width (90.2M embedding rows on the
+     card): ``models.recsys.forward(use_kernel=True)`` on ``ctr_batches``
+     ids at ``serve_p99`` (B=512) and ``serve_bulk`` (B=262,144), one B4
+     launch per call, against ``forward(use_kernel=False)`` with the
+     init table and with unit-normal rows; ``retrieval_score`` at
+     ``retrieval_cand`` (1 x 1,000,000) against ``forward`` on a sample
+     of candidates;
+   * ``kernels.flash_decode.ops.flash_decode`` at h2o-danube-1.8b's
+     ``decode_32k`` shape (B=128, S=32,768, H=32, Hkv=8, D=80, bf16
+     cache) for a few decode steps, against its plain version;
+4. each kernel's time at its main path's shape beside its plain
+   version's time, its bound and, where one PyTorch call computes the
+   same function, that call's time (``scaled_dot_product_attention`` for
+   B5).
 
 Before the last line it prints one JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -35,6 +52,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -67,6 +85,14 @@ TOL_FP32 = 5e-4
 #: in fp32 all through, by the kernel and by the plain version, lie more
 #: than TOL_BF16 away.
 TOL_BF16 = 1e-3
+
+#: B4 and B5, kernel vs plain version on the card, in fp32 and with bf16
+#: inputs alike: both read the same values (bf16 is upcast exactly) and
+#: sum in fp32 in another order, so the reference's fp32 tolerance holds.
+#: B4 is held against the scale before its identity's cancellation,
+#: max_b sum_k (sum_f v)^2, or for whole FM logits against their largest
+#: magnitude; B5 against max(1, max |out|).
+TOL_FM_DECODE = 2e-4
 
 FAILURES: list[str] = []
 
@@ -173,6 +199,46 @@ def linear_work(cfg, batch: int) -> tuple[float, float]:
     return ops, nbytes
 
 
+def fm_work(batch: int, f: int, k: int, elem: int) -> tuple[float, float]:
+    """(operations, bytes) of the FM pairwise term at (batch, F, K): per
+    value an add and a square-and-add (3), per k the square, the
+    difference and the add over k (3), per sample the halving; v
+    (``elem`` bytes a value) read once, the (B,) fp32 output written
+    once."""
+    ops = batch * (3 * f * k + 3 * k + 1)
+    return ops, batch * f * k * elem + 4 * batch
+
+
+def decode_work(b: int, s: int, h: int, hkv: int, d: int,
+                elem: int) -> tuple[float, float]:
+    """(operations, bytes) of one-token attention over a cache of S
+    keys, all valid: per (query head, key) the score (2D), its weight on
+    v (2D), and the mask's select, the max, the exp and the sum (4); the
+    cache (``elem`` bytes a value), q, q_pos and kv_pos read once, the
+    fp32 output written once."""
+    ops = b * h * s * (4 * d + 4)
+    nbytes = 2 * b * s * hkv * d * elem + 4 * (2 * b * h * d + b + b * s)
+    return ops, nbytes
+
+
+#: h2o-danube-1.8b (src/repro/configs/h2o_danube_1_8b.py: d_model 2560,
+#: 32 heads, 8 kv heads, so D = 80 and G = 4) at the decode_32k shape of
+#: the LM family (src/repro/configs/base.py LM_SHAPES: 128 sequences of
+#: 32,768 tokens), with a bf16 cache.
+DANUBE_DECODE = dict(b=128, s=32768, h=32, hkv=8, d=80)
+
+
+@dataclasses.dataclass
+class JediOps:
+    """How phases 2 and 3 drive a JEDI-net kernel (B1, B2, B3)."""
+
+    bind: Callable              # (params, cfg) -> bound weights
+    run: Callable               # (x, bound, cfg, block_s) -> result
+    plain: Callable             # (x, bound, cfg, block_s) -> result
+    layout: Callable            # (cfg, params, block_s) -> Layout
+    work: Callable              # (cfg, batch) -> (operations, bytes)
+
+
 @dataclasses.dataclass
 class Kernel:
     """One hand-written kernel of the port, as this script drives it."""
@@ -181,12 +247,300 @@ class Kernel:
     source: str
     replaces: str
     lib: tuple                  # (library name, sources) for build.py
-    bind: Callable              # (params, cfg) -> bound weights
-    run: Callable               # (x, bound, cfg, block_s) -> result
-    plain: Callable             # (x, bound, cfg, block_s) -> result
-    layout: Callable            # (cfg, params, block_s) -> Layout
     counter: Callable           # the wrapper carrying .launches
-    work: Callable              # (cfg, batch) -> (operations, bytes)
+    jedi: JediOps | None = None
+
+
+@dataclasses.dataclass
+class Timing:
+    """A kernel's timing case at its main path's shape: the wrapper, its
+    plain version and, where one PyTorch call computes the same
+    function, that call, on the same inputs; the launches of the main
+    path's run and the kernel's error against its plain version there."""
+
+    label: str
+    run: Callable[[], object]
+    plain: Callable[[], object]
+    ops: float
+    nbytes: float
+    max_abs_err: float
+    launches: int
+    reps: int = 200
+    plain_reps: int = 20
+    library: Callable[[], object] | None = None
+    library_name: str = ""
+    extra: dict = dataclasses.field(default_factory=dict)
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels:
+        k.counter.launches = 0
+
+
+def check_fm_kernel(dev) -> None:
+    """B4 against its plain version on unit-normal v, so the identity's
+    cancellation cannot hide a wrong term, at TOL_FM_DECODE of the scale
+    before it, max_b sum_k (sum_f v)^2."""
+    from repro_torch.kernels.fm_interaction import kernel as FMK
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for b, f, k in ((1, 39, 10), (7, 39, 10), (513, 39, 10),
+                    (262_144, 39, 10), (13, 26, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            v = torch.randn((b, f, k), generator=gen, device=dev).to(dtype)
+            out = FMK.fm_interaction_kernel_call(v)
+            again = FMK.fm_interaction_kernel_call(v)
+            torch.cuda.synchronize()
+            ref = FMK.fm_interaction_ref(v)
+            err = float((out - ref).abs().max())
+            scale = float(v.float().sum(1).square().sum(-1).max())
+            spb, smem = FMK.plan(f, k)
+            check(out.shape == (b,) and bool(torch.isfinite(out).all())
+                  and err <= TOL_FM_DECODE * scale
+                  and torch.equal(out, again),
+                  f"fm_interaction {str(dtype)[6:]} B={b} F={f} K={k}: "
+                  f"max|err| {err:.3e} ({err / scale:.2e} of scale "
+                  f"{scale:.1f}, tol {TOL_FM_DECODE:g}), repeat bitwise "
+                  f"equal, {spb} samples per block, {smem} B shared memory")
+
+
+def decode_inputs(gen, dev, b, h, hkv, d, s, dtype, *, causal=True,
+                  q_pos=None):
+    """Unit-normal q (B, H, D) fp32 and cache (B, S, Hkv, D) in ``dtype``;
+    q_pos random in [1, S) unless given; kv_pos the slot positions, -1
+    past q_pos when ``causal``."""
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev, dtype=dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev, dtype=dtype)
+    if q_pos is None:
+        q_pos = torch.randint(1, s, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    else:
+        q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    kv_pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    if causal:
+        kv_pos = torch.where(kv_pos <= q_pos[:, None], kv_pos, -1)
+    return q, k, v, q_pos, kv_pos.contiguous()
+
+
+def scaled_groups(q, hkv: int):
+    """q (B, H, D) scaled by 1/sqrt(D) in fp32 as (B, Hkv, G, D), the
+    kernel's input (what ``ops.flash_decode`` hands it)."""
+    b, h, d = q.shape
+    return (q.float() * (1.0 / d ** 0.5)).reshape(b, hkv, h // hkv, d)
+
+
+def check_decode_kernel(dev) -> None:
+    """B5 against its plain version at TOL_FM_DECODE of max(1, |out|)."""
+    from repro_torch.kernels.flash_decode import kernel as FDK
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (  # label, (B, H, Hkv, D, S), chunk, window, dtype, q_pos
+        ("MHA G=1", (2, 4, 4, 32, 256), 64, None, f32, None),
+        ("GQA G=4", (4, 8, 2, 64, 512), 128, None, f32, None),
+        ("MQA G=16", (1, 16, 1, 128, 1024), 256, None, f32, None),
+        ("D=80 G=4", (2, 32, 8, 80, 1024), None, None, f32, None),
+        ("window 64, first chunks all masked", (2, 4, 2, 32, 256), 64, 64,
+         f32, [200, 255]),
+        ("bf16 cache D=80 G=4", (2, 32, 8, 80, 1024), None, None, bf16,
+         None),
+        ("bf16 cache S=1000, tile 64", (2, 32, 8, 80, 1000), 64, None, bf16,
+         None),
+        ("row 0 with no valid key", (3, 8, 2, 80, 200), 64, None, f32, None),
+    )
+    for label, (b, h, hkv, d, s), chunk, window, dtype, qp in cases:
+        q, k, v, q_pos, kv_pos = decode_inputs(
+            gen, dev, b, h, hkv, d, s, dtype, causal=window is None,
+            q_pos=qp)
+        if label.startswith("row 0"):
+            kv_pos[0] = -1
+        out = fd_ops.flash_decode(q, k, v, q_pos, kv_pos, chunk=chunk,
+                                  window=window)
+        again = fd_ops.flash_decode(q, k, v, q_pos, kv_pos, chunk=chunk,
+                                    window=window)
+        torch.cuda.synchronize()
+        ref = FDK.flash_decode_ref(scaled_groups(q, hkv), k, v, q_pos,
+                                   kv_pos, window=window).reshape(b, h, d)
+        err, rel = err_of(out, ref)
+        ok = out.shape == (b, h, d) and bool(torch.isfinite(out).all()) \
+            and rel <= TOL_FM_DECODE and torch.equal(out, again)
+        if label.startswith("row 0"):
+            # the reference's finite NEG_INF: the mean of v, not 0 or NaN
+            mean_v = v[0].float().mean(0).repeat_interleave(h // hkv, 0)
+            ok = ok and float((out[0] - mean_v).abs().max()) <= 1e-5
+        lay = FDK.plan(h // hkv, d, s, chunk)
+        check(ok, f"flash_decode {label} (B={b} H={h} Hkv={hkv} D={d} S={s} "
+                  f"{str(dtype)[6:]}): max|err| {err:.3e} ({rel:.2e} of "
+                  f"scale, tol {TOL_FM_DECODE:g}), repeat bitwise equal, "
+                  f"tile {lay.chunk} keys, {lay.smem_bytes} B shared memory")
+
+
+def fm_path(dev, card: str, kernels, b4: Kernel) -> Timing:
+    """FM scoring at the full ``fm`` width through B4 (phase 3); returns
+    B4's timing case at serve_bulk."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys_data import ctr_batches
+    from repro_torch.kernels.fm_interaction import kernel as FMK
+    from repro_torch.models import recsys
+
+    spec = get_arch("fm")
+    cfg = spec.model
+    t0 = time.perf_counter()
+    params = recsys.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    table = params["tables"]["rows"]
+    t_init = time.perf_counter() - t0
+    want_std = 0.01 / cfg.embed_dim ** 0.5
+    std = float(table[:1_000_000].float().std())
+    check(table.is_cuda and table.shape == (recsys.padded_rows(cfg),
+                                            cfg.embed_dim)
+          and abs(std - want_std) < 0.01 * want_std,
+          f"fm init on the card: {table.shape[0]:,} rows x {cfg.embed_dim} "
+          f"{table.dtype} ({table.numel() * table.element_size() / 2**30:.2f}"
+          f" GiB) in {t_init:.2f} s; std of 1M rows {std:.4e} (reference "
+          f"{want_std:.4e})")
+    ids = {}
+    for seed, shape in enumerate(("serve_p99", "serve_bulk")):
+        batch = spec.shapes[shape].dim("batch")
+        ids[shape] = torch.from_numpy(
+            next(ctr_batches(seed, batch, cfg.vocab_sizes))["ids"]).to(dev)
+
+    # the main path: one B4 launch per forward call
+    calls = {"serve_p99": 8, "serve_bulk": 4}
+    zero_counts(kernels)
+    for shape, n in calls.items():
+        for _ in range(n):
+            out = recsys.forward(params, cfg, ids[shape], use_kernel=True)
+    torch.cuda.synchronize()
+    launches = b4.counter.launches
+    others = {k.name: k.counter.launches for k in kernels
+              if k is not b4 and k.counter.launches}
+    check(launches == sum(calls.values()) and not others
+          and bool(torch.isfinite(out).all()),
+          f"fm forward(use_kernel=True): {launches} fm_interaction launches "
+          f"for {sum(calls.values())} calls, other kernels {others or 'none'}")
+
+    # kernel vs plain end to end, then the retrieval identity, with the
+    # init table and with unit-normal rows
+    rng = np.random.RandomState(2)
+    user = ids["serve_p99"][0, :-1]
+    n_cand = spec.shapes["retrieval_cand"].dim("n_candidates")
+    cands = torch.from_numpy(rng.randint(0, cfg.vocab_sizes[-1], n_cand)
+                             .astype(np.int32)).to(dev)
+    pick = torch.from_numpy(np.sort(rng.choice(n_cand, 1024, replace=False))
+                            ).to(dev)
+    v_bulk = recsys.lookup(params, cfg, ids["serve_bulk"])[0]
+    err_bulk = float((FMK.fm_interaction_kernel_call(v_bulk)
+                      - FMK.fm_interaction_ref(v_bulk)).abs().max())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    metrics = {}
+    for rows in ("init table", "unit-normal rows"):
+        if rows == "unit-normal rows":
+            table.normal_(generator=gen)
+        for shape, x in ids.items():
+            got = recsys.forward(params, cfg, x, use_kernel=True)
+            want = recsys.forward(params, cfg, x, use_kernel=False)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(got.shape == (x.shape[0],) and bool(torch.isfinite(got).all())
+                  and err <= TOL_FM_DECODE * scale,
+                  f"fm {rows} {shape} B={x.shape[0]}: forward(use_kernel="
+                  f"True) vs plain max|err| {err:.3e} ({err / scale:.2e} of "
+                  f"max |logit| {scale:.3e}, tol {TOL_FM_DECODE:g})")
+        scores = recsys.retrieval_score(params, cfg, user, cands)
+        full = torch.cat([user.expand(len(pick), -1), cands[pick, None]], 1)
+        fwd = recsys.forward(params, cfg, full, use_kernel=True)
+        err = float((scores[pick] - fwd).abs().max())
+        scale = float(fwd.abs().max())
+        check(scores.shape == (n_cand,) and bool(torch.isfinite(scores).all())
+              and err <= TOL_FM_DECODE * scale,
+              f"fm {rows} retrieval_cand 1 x {n_cand:,}: retrieval_score vs "
+              f"forward on [u || c] at 1024 candidates max|err| {err:.3e} "
+              f"({err / scale:.2e} of {scale:.3e}, tol {TOL_FM_DECODE:g})")
+
+    # end-to-end times of the path on the card (ids already there)
+    for shape, x in ids.items():
+        reps = 50 if shape == "serve_p99" else 10
+        ms = time_ms(lambda: recsys.forward(params, cfg, x, use_kernel=True),
+                     reps)
+        plain = time_ms(lambda: recsys.forward(params, cfg, x), reps)
+        metrics[shape] = {"batch": x.shape[0], "ms": ms,
+                          "samples_per_s": x.shape[0] / ms * 1e3,
+                          "plain_forward_ms": plain}
+        print(f"  fm forward(use_kernel=True) {shape} B={x.shape[0]}: {ms:.4f}"
+              f" ms/batch, {x.shape[0] / ms * 1e3:,.0f} samples/s "
+              f"(forward with the plain term {plain:.4f} ms)  [{card}]")
+    ms = time_ms(lambda: recsys.retrieval_score(params, cfg, user, cands), 20)
+    metrics["retrieval_cand_ms"] = ms
+    print(f"  fm retrieval_score 1 x {n_cand:,}: {ms:.4f} ms, "
+          f"{n_cand / ms * 1e3:,.0f} candidates/s  [{card}]")
+    del params, table
+    ops_, nbytes = fm_work(*v_bulk.shape, v_bulk.element_size())
+    return Timing(
+        f"fm serve_bulk B={v_bulk.shape[0]} F={v_bulk.shape[1]} "
+        f"K={v_bulk.shape[2]} fp32",
+        lambda: FMK.fm_interaction_kernel_call(v_bulk),
+        lambda: FMK.fm_interaction_ref(v_bulk), ops_, nbytes, err_bulk,
+        launches, extra={"main_path": "models.recsys.forward(use_kernel="
+                         "True)", "fm": metrics})
+
+
+def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
+    """flash_decode at h2o-danube-1.8b's decode_32k shape (phase 3): a few
+    decode steps through the public op; returns B5's timing case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as FDK
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+
+    b, s, h, hkv, d = (DANUBE_DECODE[n] for n in ("b", "s", "h", "hkv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, _, kv_pos = decode_inputs(gen, dev, b, h, hkv, d, s,
+                                       torch.bfloat16, causal=False,
+                                       q_pos=[0] * b)
+    steps = 4
+    zero_counts(kernels)
+    for i in range(steps):
+        # step i sees the cache up to position S - steps + i
+        q_pos = torch.full((b,), s - steps + i, dtype=torch.int32, device=dev)
+        out = fd_ops.flash_decode(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    launches = b5.counter.launches
+    others = {kk.name: kk.counter.launches for kk in kernels
+              if kk is not b5 and kk.counter.launches}
+    qg = scaled_groups(q, hkv)
+    ref = FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos).reshape(b, h, d)
+    err, rel = err_of(out, ref)
+    check(launches == steps and not others and out.shape == (b, h, d)
+          and bool(torch.isfinite(out).all()) and rel <= TOL_FM_DECODE,
+          f"flash_decode h2o-danube-1.8b decode_32k B={b} S={s} H={h} "
+          f"Hkv={hkv} D={d} bf16 cache: {launches} launches for {steps} "
+          f"steps, other kernels {others or 'none'}; last step vs plain "
+          f"max|err| {err:.3e} ({rel:.2e} of scale, tol {TOL_FM_DECODE:g})")
+    del ref
+    torch.cuda.empty_cache()
+    # the library call: SDPA in bf16 on the transposed cache, same mask
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    sdpa_diff = float((sdpa()[:, :, 0].float() - out).abs().max())
+    print(f"  scaled_dot_product_attention (bf16 q) vs the kernel: max "
+          f"|diff| {sdpa_diff:.3e} (q rounded to bf16)")
+    ops_, nbytes = decode_work(b, s, h, hkv, d, k.element_size())
+    return Timing(
+        f"h2o-danube-1.8b decode_32k B={b} S={s} H={h} Hkv={hkv} D={d} bf16",
+        lambda: FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos),
+        lambda: FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos), ops_, nbytes,
+        err, launches, reps=10, plain_reps=3, library=sdpa,
+        library_name="scaled_dot_product_attention (bf16, enable_gqa, "
+                     "boolean mask)",
+        extra={"main_path": "kernels.flash_decode.ops.flash_decode",
+               "sdpa_max_abs_diff": sdpa_diff})
 
 
 def main() -> int:
@@ -203,6 +557,8 @@ def main() -> int:
             quantize_params_int8
         from repro_torch.data.jets import make_jets
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_decode import kernel as FDK
+        from repro_torch.kernels.fm_interaction import kernel as FMK
         from repro_torch.kernels.fused_jedinet import autotune as fj_tune
         from repro_torch.kernels.fused_jedinet import full_kernel as FK
         from repro_torch.kernels.fused_jedinet import kernel as EK
@@ -227,37 +583,51 @@ def main() -> int:
     b1 = Kernel(
         "fused_jedinet_full", csrc + "fused_jedinet_full.cu",
         "src/repro/kernels/fused_jedinet/full_kernel.py:109",
-        (FK.LIB_NAME, FK.SOURCES), ops.bind_full,
-        lambda x, b, cfg, bs: FK.fused_forward_full_kernel_call(
-            x, b, activation=cfg.activation, n_targets=cfg.n_targets,
-            block_s=bs),
-        lambda x, b, cfg, bs: FK.fused_forward_full_plain(
-            x, b.fr, b.fo, b.phi, activation=cfg.activation,
-            scales=b.scales, block_s=bs),
-        lambda cfg, p, bs: fj_tune.layout_for(cfg, p, block_s=bs),
-        FK.fused_forward_full_kernel_call, fused_full_work)
+        (FK.LIB_NAME, FK.SOURCES), FK.fused_forward_full_kernel_call,
+        JediOps(
+            ops.bind_full,
+            lambda x, b, cfg, bs: FK.fused_forward_full_kernel_call(
+                x, b, activation=cfg.activation, n_targets=cfg.n_targets,
+                block_s=bs),
+            lambda x, b, cfg, bs: FK.fused_forward_full_plain(
+                x, b.fr, b.fo, b.phi, activation=cfg.activation,
+                scales=b.scales, block_s=bs),
+            lambda cfg, p, bs: fj_tune.layout_for(cfg, p, block_s=bs),
+            fused_full_work))
     b2 = Kernel(
         "jedi_linear_full", csrc + "jedi_linear_full.cu",
         "src/repro/kernels/jedi_linear/linear_kernel.py:46",
-        (LK.LIB_NAME, LK.SOURCES), jl_ops.bind_linear,
-        lambda x, b, cfg, bs: LK.jedi_linear_kernel_call(
-            x, b, activation=cfg.activation, n_targets=cfg.n_targets),
-        lambda x, b, cfg, bs: LK.jedi_linear_forward_full_plain(
-            x, b.fr, b.fo, b.phi, activation=cfg.activation,
-            scales=b.scales),
-        lambda cfg, p, bs: jl_tune.layout_for(cfg, p),
-        LK.jedi_linear_kernel_call, linear_work)
+        (LK.LIB_NAME, LK.SOURCES), LK.jedi_linear_kernel_call,
+        JediOps(
+            jl_ops.bind_linear,
+            lambda x, b, cfg, bs: LK.jedi_linear_kernel_call(
+                x, b, activation=cfg.activation, n_targets=cfg.n_targets),
+            lambda x, b, cfg, bs: LK.jedi_linear_forward_full_plain(
+                x, b.fr, b.fo, b.phi, activation=cfg.activation,
+                scales=b.scales),
+            lambda cfg, p, bs: jl_tune.layout_for(cfg, p),
+            linear_work))
     b3 = Kernel(
         "fused_jedinet_edge", csrc + "fused_jedinet_edge.cu",
         "src/repro/kernels/fused_jedinet/kernel.py:64",
-        (EK.LIB_NAME, EK.SOURCES), lambda p, cfg: ops.bind_edge(p["fr"], cfg),
-        lambda x, b, cfg, bs: EK.fused_edge_block_kernel_call(
-            x, b, activation=cfg.activation, block_s=bs),
-        lambda x, b, cfg, bs: EK.fused_edge_block_plain(
-            x, b.fr, activation=cfg.activation, block_s=bs),
-        lambda cfg, p, bs: fj_tune.edge_layout_for(cfg, p, block_s=bs),
-        EK.fused_edge_block_kernel_call, edge_work)
-    kernels = [b1, b2, b3]
+        (EK.LIB_NAME, EK.SOURCES), EK.fused_edge_block_kernel_call,
+        JediOps(
+            lambda p, cfg: ops.bind_edge(p["fr"], cfg),
+            lambda x, b, cfg, bs: EK.fused_edge_block_kernel_call(
+                x, b, activation=cfg.activation, block_s=bs),
+            lambda x, b, cfg, bs: EK.fused_edge_block_plain(
+                x, b.fr, activation=cfg.activation, block_s=bs),
+            lambda cfg, p, bs: fj_tune.edge_layout_for(cfg, p, block_s=bs),
+            edge_work))
+    b4 = Kernel(
+        "fm_interaction", csrc + "fm_interaction.cu",
+        "src/repro/kernels/fm_interaction/kernel.py:21",
+        (FMK.LIB_NAME, FMK.SOURCES), FMK.fm_interaction_kernel_call)
+    b5 = Kernel(
+        "flash_decode", csrc + "flash_decode.cu",
+        "src/repro/kernels/flash_decode/kernel.py:35",
+        (FDK.LIB_NAME, FDK.SOURCES), FDK.flash_decode_kernel_call)
+    kernels = [b1, b2, b3, b4, b5]
 
     # ---- 1. the card and the build --------------------------------------
     print("== 1. card and build")
@@ -282,20 +652,21 @@ def main() -> int:
 
     def case(k, label, cfg, batch, *, quant=False, block_s=None,
              tol=TOL_FP32):
+        j = k.jedi
         params = inet.init(0, cfg, scale="lecun", device=dev)
         if quant:
             params = quantize_params_int8(params)
         x = torch.from_numpy(
             make_jets(np.random.RandomState(1), batch, cfg.n_objects)[0])
-        bound = k.bind(params, cfg)
+        bound = j.bind(params, cfg)
         cdt = getattr(torch, cfg.compute_dtype)
         xk = x.to(dev).to(cdt).contiguous()
-        out = k.run(xk, bound, cfg, block_s)
-        again = k.run(xk, bound, cfg, block_s)
+        out = j.run(xk, bound, cfg, block_s)
+        again = j.run(xk, bound, cfg, block_s)
         torch.cuda.synchronize()
-        ref = k.plain(xk, bound, cfg, block_s)
+        ref = j.plain(xk, bound, cfg, block_s)
         err, rel = err_of(out, ref)
-        lay = k.layout(cfg, params, block_s)
+        lay = j.layout(cfg, params, block_s)
         check(out.shape == ref.shape and out.shape[0] == batch
               and bool(torch.isfinite(out).all()) and rel <= tol
               and torch.equal(out, again),
@@ -309,14 +680,15 @@ def main() -> int:
         """The bf16 rounding itself is held: the same bf16 x and weights,
         run in fp32 all through by the kernel and by the plain version,
         must land further than TOL_BF16 from the bf16 kernel."""
+        j = k.jedi
         xb, bb, cfg = args
         b32 = FK.KernelWeights(
             fr=[t.float() for t in bb.fr], fo=[t.float() for t in bb.fo],
             phi=[t.float() for t in bb.phi], scales=None,
             n_features=bb.n_features).pack()
-        kb = k.run(xb, bb, cfg, None)
-        k32 = k.run(xb.float(), b32, cfg, None)
-        unrounded = k.plain(xb.float(), b32, cfg, None)
+        kb = j.run(xb, bb, cfg, None)
+        k32 = j.run(xb.float(), b32, cfg, None)
+        unrounded = j.plain(xb.float(), b32, cfg, None)
         torch.cuda.synchronize()
         gap_k, gap_k_rel = err_of(kb, k32)
         gap_p, gap_p_rel = err_of(kb, unrounded)
@@ -347,6 +719,8 @@ def main() -> int:
     case(b3, "jedi_30p bf16", bf30, 257, tol=TOL_BF16)
     case(b3, "jedi_50p fp32", c50, 13)
     case(b3, "jedi_tracks_128 fp32", c128, 13)
+    check_fm_kernel(dev)
+    check_decode_kernel(dev)
 
     # ---- 3. the main paths -------------------------------------------------
     print("== 3. main paths: ResilientEngine")
@@ -368,8 +742,7 @@ def main() -> int:
                                cfg.n_features)
         engine = ResilientEngine(params, cfg, forward=forward, device="cuda",
                                  max_batch=batch)
-        for kk in kernels:
-            kk.counter.launches = 0
+        zero_counts(kernels)
         res = engine.run_stream(stream, warmup=2)
         served = [engine.infer(r) for r in requests]
         torch.cuda.synchronize()
@@ -416,41 +789,56 @@ def main() -> int:
     }
     main_path = {b1.name: "fused_full", b2.name: "jedi_linear_full",
                  b3.name: "fused"}
+    timings = {}
+    for k in (b1, b2, b3):
+        xk, bound, cfg = main_args[k.name]
+        ops_, nbytes = k.jedi.work(cfg, xk.shape[0])
+        launches, snap = serving[main_path[k.name]]
+        timings[k.name] = Timing(
+            f"jedi_30p B={xk.shape[0]} fp32",
+            functools.partial(k.jedi.run, xk, bound, cfg, None),
+            functools.partial(k.jedi.plain, xk, bound, cfg, None), ops_,
+            nbytes, main_err[k.name], launches,
+            extra={"main_path": main_path[k.name],
+                   "serving": {"kgps": snap["kgps"], "p50_us": snap["p50_us"],
+                               "p99_us": snap["p99_us"]}})
+    print("== 3. main paths: FM scoring at the full fm width")
+    timings[b4.name] = fm_path(dev, card, kernels, b4)
+    torch.cuda.empty_cache()
+    print("== 3. main paths: flash decode at h2o-danube-1.8b decode_32k")
+    timings[b5.name] = decode_path(dev, card, kernels, b5)
 
     # ---- 4. timing ----------------------------------------------------------
     print("== 4. kernel timing (CUDA events)")
     rows = []
     for k in kernels:
-        xk, bound, cfg = main_args[k.name]
-        ms = time_ms(lambda: k.run(xk, bound, cfg, None), 200)
-        plain_ms = time_ms(lambda: k.plain(xk, bound, cfg, None), 20)
-        ops_, nbytes = k.work(cfg, xk.shape[0])
-        t_ops = ops_ / PEAK_FP32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t = timings[k.name]
+        ms = time_ms(t.run, t.reps)
+        plain_ms = time_ms(t.plain, t.plain_reps)
+        library_ms = time_ms(t.library, t.reps) if t.library else None
+        t_ops = t.ops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = t.nbytes / PEAK_HBM_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
-        print(f"  {k.name} at jedi_30p B={xk.shape[0]} fp32: {ms:.4f} "
-              f"ms/batch (plain version {plain_ms:.4f} ms); bound "
-              f"{bound_ms:.4f} ms ({ops_ / 1e9:.4f} GFLOP at 67 TFLOP/s "
-              f"fp32 vs {nbytes / 1e6:.3f} MB at 3.35 TB/s); no single "
-              f"PyTorch call computes this function, so no library time  "
-              f"[{card}]")
-        launches, snap = serving[main_path[k.name]]
+        lib = (f"; {t.library_name} {library_ms:.4f} ms" if t.library else
+               "; no single PyTorch call computes this function")
+        print(f"  {k.name} at {t.label}: {ms:.4f} ms (plain version "
+              f"{plain_ms:.4f} ms{lib}); bound {bound_ms:.4f} ms "
+              f"({t.ops / 1e9:.4f} GFLOP at 67 TFLOP/s fp32 vs "
+              f"{t.nbytes / 1e6:.3f} MB at 3.35 TB/s)  [{card}]")
         rows.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches,
-            "max_abs_err": main_err[k.name], "ms": ms, "plain_ms": plain_ms,
+            "replaces": k.replaces, "launches": t.launches,
+            "max_abs_err": t.max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "main_path": main_path[k.name],
-            "serving": {"kgps": snap["kgps"], "p50_us": snap["p50_us"],
-                        "p99_us": snap["p99_us"]},
+            "library_ms": library_ms, "at": t.label, **t.extra,
             "card": card})
     # B2 at its widest shape, for the record beside its bound
     params = inet.init(0, c128, scale="lecun", device=dev)
     x = torch.from_numpy(make_jets(np.random.RandomState(1), batch,
                                    c128.n_objects)[0]).to(dev)
-    bound = b2.bind(params, c128)
-    ms128 = time_ms(lambda: b2.run(x, bound, c128, None), 50)
+    bound = b2.jedi.bind(params, c128)
+    ms128 = time_ms(lambda: b2.jedi.run(x, bound, c128, None), 50)
     ops_, nbytes = linear_work(c128, batch)
     bound128 = max(ops_ / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     print(f"  jedi_linear_full at jedi_tracks_128 B={batch} fp32: "
@@ -459,6 +847,8 @@ def main() -> int:
     rows[1]["tracks_128"] = {"ms": ms128, "bound_ms": bound128}
     for key, (launches, snap) in serving.items():
         print(f"  served {key}: {launches} launches, {snap['kgps']:.1f} KGPS")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB  [{card}]")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

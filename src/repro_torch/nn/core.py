@@ -19,6 +19,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
+
 ACTIVATIONS = {
     "relu": torch.relu,
     "gelu": functools.partial(F.gelu, approximate="tanh"),
@@ -54,8 +56,10 @@ def sum_upcast(x: torch.Tensor, dim) -> torch.Tensor:
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
                dtype=torch.float32, scale: str = "fan_in",
-               use_bias: bool = True, device="cpu"):
-    """He/LeCun-style variance-scaling init, drawn on the CPU generator."""
+               use_bias: bool = True, device="cuda"):
+    """He/LeCun-style variance-scaling init, drawn on the CPU generator
+    and moved to ``device`` (the card by default; raises without one)."""
+    dev = resolve_device(device)
     if scale == "fan_in":
         std = math.sqrt(2.0 / in_dim)
     elif scale == "lecun":
@@ -66,9 +70,9 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
         raise ValueError(f"unknown init scale {scale}")
     w = torch.randn((in_dim, out_dim), generator=generator,
                     dtype=torch.float32) * std
-    p = {"w": w.to(dtype=as_dtype(dtype), device=device)}
+    p = {"w": w.to(dtype=as_dtype(dtype), device=dev)}
     if use_bias:
-        p["b"] = torch.zeros((out_dim,), dtype=as_dtype(dtype), device=device)
+        p["b"] = torch.zeros((out_dim,), dtype=as_dtype(dtype), device=dev)
     return p
 
 
@@ -92,7 +96,7 @@ def mlp_dims(in_dim: int, hidden: Sequence[int], out_dim: int) -> list:
 
 def mlp_init(generator: torch.Generator, in_dim: int, hidden: Sequence[int],
              out_dim: int, *, dtype=torch.float32, scale: str = "fan_in",
-             device="cpu"):
+             device="cuda"):
     return {"layers": [dense_init(generator, din, dout, dtype=dtype,
                                   scale=scale, device=device)
                        for din, dout in mlp_dims(in_dim, hidden, out_dim)]}

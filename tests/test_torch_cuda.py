@@ -3,9 +3,11 @@
 Run on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 Each kernel (B1 whole JEDI-net, B2 JEDI-linear, B3 edge block) is held
-against its plain version at 5e-4 of the result scale, and two launches
-must be bitwise equal.  ``chip_smoke.py`` covers the same ground at the
-repo's full widths.
+against its plain version at 5e-4 of the result scale; B4 (FM
+interaction) and B5 (flash decode) at 2e-4 of theirs, in fp32 and in
+bf16, where kernel and plain version read the same bf16 values and sum
+in fp32.  Two launches must be bitwise equal.  ``chip_smoke.py`` covers
+the same ground at the repo's full widths.
 """
 
 import numpy as np
@@ -19,6 +21,10 @@ from repro_torch.kernels.fused_jedinet import full_kernel as FK
 from repro_torch.kernels.fused_jedinet import kernel as EK
 from repro_torch.kernels.fused_jedinet import ops
 from repro_torch.kernels.jedi_linear import linear_kernel as LK
+from repro_torch.kernels.fm_interaction import kernel as FMK
+from repro_torch.kernels.fm_interaction import ops as fm_ops
+from repro_torch.kernels.flash_decode import kernel as FDK
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.jedi_linear import ops as jl_ops
 
 
@@ -91,3 +97,64 @@ def test_edge_block_kernel_matches_plain_version(cuda, n_o, batch):
     assert out.shape == (batch, n_o, cfg.d_e)
     ref = EK.fused_edge_block_plain(x, bound.fr, activation="relu")
     _check(out, ref, ops.fused_edge_block(bound, cfg, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,k", [(1, 39, 10), (7, 39, 10), (513, 39, 10),
+                                   (64, 26, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_interaction_kernel_matches_plain_version(cuda, b, f, k, dtype):
+    """Unit-normal v, held at 2e-4 of sum_k (sum_f v)^2, the scale before
+    the identity's cancellation."""
+    v = torch.from_numpy(np.random.RandomState(0).normal(0, 1, (b, f, k))
+                         .astype(np.float32)).to(cuda).to(dtype)
+    before = FMK.fm_interaction_kernel_call.launches
+    out = fm_ops.fm_interaction(v)
+    assert FMK.fm_interaction_kernel_call.launches == before + 1
+    ref = FMK.fm_interaction_ref(v)
+    scale = float(v.float().sum(1).square().sum(-1).max())
+    assert out.shape == (b,) and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= 2e-4 * scale
+    assert torch.equal(out, fm_ops.fm_interaction(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,d,s,chunk,window,dtype,masked", [
+    (2, 4, 4, 32, 256, 64, None, torch.float32, False),
+    (4, 8, 2, 64, 512, 128, None, torch.float32, False),
+    (1, 16, 1, 128, 1024, 256, None, torch.float32, False),
+    (2, 32, 8, 80, 300, 64, None, torch.bfloat16, True),
+    (2, 4, 2, 32, 256, 64, 64, torch.float32, False),
+    (2, 8, 2, 33, 100, 16, None, torch.bfloat16, False),
+])
+def test_flash_decode_kernel_matches_plain_version(cuda, b, h, hkv, d, s,
+                                                   chunk, window, dtype,
+                                                   masked):
+    rng = np.random.RandomState(1)
+    q = torch.from_numpy(rng.normal(0, 1, (b, h, d)).astype(np.float32))
+    kv = [torch.from_numpy(rng.normal(0, 1, (b, s, hkv, d))
+                           .astype(np.float32)).to(cuda).to(dtype)
+          for _ in range(2)]
+    q_pos = torch.from_numpy(rng.randint(1, s, b).astype(np.int32))
+    kv_pos = torch.arange(s, dtype=torch.int32)[None].repeat(b, 1)
+    if window is None:
+        kv_pos = torch.where(kv_pos <= q_pos[:, None], kv_pos, -1)
+    if masked:
+        kv_pos[0] = -1
+    q, q_pos, kv_pos = q.to(cuda), q_pos.to(cuda), kv_pos.to(cuda)
+    before = FDK.flash_decode_kernel_call.launches
+    out = fd_ops.flash_decode(q, *kv, q_pos, kv_pos, chunk=chunk,
+                              window=window)
+    assert FDK.flash_decode_kernel_call.launches == before + 1
+    qg = (q * (1.0 / d ** 0.5)).reshape(b, hkv, h // hkv, d)
+    ref = FDK.flash_decode_ref(qg, *kv, q_pos, kv_pos,
+                               window=window).reshape(b, h, d)
+    assert bool(torch.isfinite(out).all())
+    _check_tol(out, ref, 2e-4)
+    assert torch.equal(out, fd_ops.flash_decode(q, *kv, q_pos, kv_pos,
+                                                chunk=chunk, window=window))
+
+
+def _check_tol(out, ref, tol):
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol * scale

@@ -43,7 +43,10 @@ def test_port_module_imports_no_jax_and_no_reference(path):
 def test_port_has_modules_to_check():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for required in ("bridge.py", "kernels/fused_jedinet/full_kernel.py",
-                     "serving/resilient.py", "launch/trigger_serve.py"):
+                     "serving/resilient.py", "launch/trigger_serve.py",
+                     "models/__init__.py", "models/recsys.py",
+                     "kernels/fm_interaction/kernel.py",
+                     "kernels/flash_decode/kernel.py"):
         assert required in names
 
 

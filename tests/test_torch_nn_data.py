@@ -80,14 +80,24 @@ def test_mlp_apply_matches_jax(dtype, tol):
 @pytest.mark.parametrize("scale", ["fan_in", "lecun", "fan_avg"])
 def test_mlp_init_scale_rules(scale):
     gen = torch.Generator().manual_seed(0)
-    p = tnn.mlp_init(gen, 400, (300,), 200, scale=scale)
+    p = tnn.mlp_init(gen, 400, (300,), 200, scale=scale, device="cpu")
     w0 = p["layers"][0]["w"]
     want = {"fan_in": (2 / 400) ** 0.5, "lecun": (1 / 400) ** 0.5,
             "fan_avg": (2 / 700) ** 0.5}[scale]
     assert abs(float(w0.std()) - want) < 0.03 * want
     assert torch.all(p["layers"][0]["b"] == 0)
     with pytest.raises(ValueError):
-        tnn.mlp_init(gen, 4, (), 2, scale="bogus")
+        tnn.mlp_init(gen, 4, (), 2, scale="bogus", device="cpu")
+
+
+def test_mlp_init_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnn.mlp_init(gen, 4, (3,), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnn.dense_init(gen, 4, 2)
 
 
 @pytest.mark.parametrize("seed,n,n_o", [(0, 7, 30), (5, 3, 13), (9, 2, 50)])
