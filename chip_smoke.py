@@ -19,8 +19,10 @@ non-zero on any failure:
    * B4 ``fm_interaction``: unit-normal v in fp32 and bf16 at B = 1, 7,
      513 and 262,144 (F=39, K=10, the ``fm`` config) and at F=26, K=16;
    * B5 ``flash_decode``: the reference's three sweep shapes, D=80 at
-     G=4, a sliding window, a bf16 cache, S not a multiple of the tile
-     and a row with no valid key;
+     G=4, a sliding window, a bf16 cache, S not a multiple of the tile,
+     a row with no valid key (with one partition and with many), and
+     h2o-danube-1.8b's decode_32k shape at B=1 and B=2, where many
+     sequence partitions combine;
 3. the main paths, each with all launch counts set to 0 just before it
    is driven and read just after:
    * ``fused_full`` and ``int8_fused_full`` (B1), ``jedi_linear_full``
@@ -42,7 +44,7 @@ non-zero on any failure:
 4. each kernel's time at its main path's shape beside its plain
    version's time, its bound and, where one PyTorch call computes the
    same function, that call's time (``scaled_dot_product_attention`` for
-   B5).
+   B5); B1's design per case and B5's partitions, stages and path.
 
 Before the last line it prints one JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +57,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -109,6 +112,22 @@ def err_of(out, ref) -> tuple[float, float]:
     err = float((out.float() - ref.float()).abs().max())
     scale = max(1.0, float(ref.float().abs().max()))
     return err, err / scale
+
+
+def kernel_name(mangled: str) -> str:
+    """A ptxas report's mangled kernel name, short: the identifier and its
+    template arguments (``jedi_fused_full_warp_kernel<20,0>``)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled
+    n = int(m.group(1))
+    ident, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+    if not rest.startswith("I"):
+        return ident
+    args = ["bf16" if "bfloat16" in rest else "f32"] \
+        if rest.startswith(("If", "I13")) else []
+    args += re.findall(r"L[ib](\d+)E", rest)
+    return f"{ident}<{','.join(args)}>"
 
 
 def card_line() -> str:
@@ -347,12 +366,21 @@ def check_decode_kernel(dev) -> None:
         ("bf16 cache S=1000, tile 64", (2, 32, 8, 80, 1000), 64, None, bf16,
          None),
         ("row 0 with no valid key", (3, 8, 2, 80, 200), 64, None, f32, None),
+        ("bf16 D=33 (plain staging)", (2, 8, 2, 33, 100), 16, None, bf16,
+         None),
+        ("danube decode_32k B=1", (1, 32, 8, 80, 32768), None, None, bf16,
+         None),
+        ("danube decode_32k B=2", (2, 32, 8, 80, 32768), None, None, bf16,
+         None),
+        ("row 0 with no valid key, many partitions", (2, 32, 8, 80, 32768),
+         None, None, bf16, None),
     )
     for label, (b, h, hkv, d, s), chunk, window, dtype, qp in cases:
         q, k, v, q_pos, kv_pos = decode_inputs(
             gen, dev, b, h, hkv, d, s, dtype, causal=window is None,
             q_pos=qp)
-        if label.startswith("row 0"):
+        masked = label.startswith("row 0")
+        if masked:
             kv_pos[0] = -1
         out = fd_ops.flash_decode(q, k, v, q_pos, kv_pos, chunk=chunk,
                                   window=window)
@@ -364,15 +392,18 @@ def check_decode_kernel(dev) -> None:
         err, rel = err_of(out, ref)
         ok = out.shape == (b, h, d) and bool(torch.isfinite(out).all()) \
             and rel <= TOL_FM_DECODE and torch.equal(out, again)
-        if label.startswith("row 0"):
+        if masked:
             # the reference's finite NEG_INF: the mean of v, not 0 or NaN
             mean_v = v[0].float().mean(0).repeat_interleave(h // hkv, 0)
             ok = ok and float((out[0] - mean_v).abs().max()) <= 1e-5
-        lay = FDK.plan(h // hkv, d, s, chunk)
+        lay = FDK.plan(b, hkv, h // hkv, d, s, k.element_size(), chunk)
         check(ok, f"flash_decode {label} (B={b} H={h} Hkv={hkv} D={d} S={s} "
                   f"{str(dtype)[6:]}): max|err| {err:.3e} ({rel:.2e} of "
                   f"scale, tol {TOL_FM_DECODE:g}), repeat bitwise equal, "
-                  f"tile {lay.chunk} keys, {lay.smem_bytes} B shared memory")
+                  f"{lay.n_parts} partitions of {lay.part_len} keys, "
+                  f"{lay.stages}-stage ring, {lay.path} path, "
+                  f"{lay.smem_bytes} B shared memory")
+        del q, k, v, ref
 
 
 def fm_path(dev, card: str, kernels, b4: Kernel) -> Timing:
@@ -532,6 +563,7 @@ def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
     print(f"  scaled_dot_product_attention (bf16 q) vs the kernel: max "
           f"|diff| {sdpa_diff:.3e} (q rounded to bf16)")
     ops_, nbytes = decode_work(b, s, h, hkv, d, k.element_size())
+    lay = FDK.plan(b, hkv, h // hkv, d, s, k.element_size())
     return Timing(
         f"h2o-danube-1.8b decode_32k B={b} S={s} H={h} Hkv={hkv} D={d} bf16",
         lambda: FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos),
@@ -540,7 +572,10 @@ def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
         library_name="scaled_dot_product_attention (bf16, enable_gqa, "
                      "boolean mask)",
         extra={"main_path": "kernels.flash_decode.ops.flash_decode",
-               "sdpa_max_abs_diff": sdpa_diff})
+               "sdpa_max_abs_diff": sdpa_diff, "partitions": lay.n_parts,
+               "partition_keys": lay.part_len, "stages": lay.stages,
+               "path": lay.path, "blocks": lay.blocks,
+               "warps_per_block": lay.heads})
 
 
 def main() -> int:
@@ -592,7 +627,7 @@ def main() -> int:
             lambda x, b, cfg, bs: FK.fused_forward_full_plain(
                 x, b.fr, b.fo, b.phi, activation=cfg.activation,
                 scales=b.scales, block_s=bs),
-            lambda cfg, p, bs: fj_tune.layout_for(cfg, p, block_s=bs),
+            lambda cfg, p, bs: fj_tune.full_layout_for(cfg, p, block_s=bs),
             fused_full_work))
     b2 = Kernel(
         "jedi_linear_full", csrc + "jedi_linear_full.cu",
@@ -643,12 +678,16 @@ def main() -> int:
             f.result()                    # raises with nvcc's output
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
+        fn = ""
         for line in build.build_log(*k.lib).splitlines():
+            if "Function properties for" in line:
+                fn = kernel_name(line.split()[-1])
             if "registers" in line or "spill" in line:
-                print(f"  {k.name}: {line.strip()}")
+                print(f"  {k.name} {fn}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ------------------------
     print("== 2. kernels vs plain versions on the card")
+    b1_designs = {}
 
     def case(k, label, cfg, batch, *, quant=False, block_s=None,
              tol=TOL_FP32):
@@ -667,13 +706,17 @@ def main() -> int:
         ref = j.plain(xk, bound, cfg, block_s)
         err, rel = err_of(out, ref)
         lay = j.layout(cfg, params, block_s)
+        design = getattr(lay, "design", "team")
+        if k is b1:
+            b1_designs[f"{label} B={batch}"] = design
         check(out.shape == ref.shape and out.shape[0] == batch
               and bool(torch.isfinite(out).all()) and rel <= tol
               and torch.equal(out, again),
               f"{k.name} {label} B={batch}: max|err| {err:.3e} ({rel:.2e} "
-              f"of scale, tol {tol:g}), repeat bitwise equal, layout epb="
-              f"{lay.events_per_block} S={lay.block_s} ks={lay.ks} "
-              f"team={lay.team} threads={lay.threads} smem={lay.smem_bytes}")
+              f"of scale, tol {tol:g}), repeat bitwise equal, {design} "
+              f"layout epb={lay.events_per_block} S={lay.block_s} ks="
+              f"{lay.ks} team={lay.team} mw={lay.mw} threads={lay.threads} "
+              f"smem={lay.smem_bytes}")
         return err, (xk, bound, cfg)
 
     def bf16_rounds(k, args):
@@ -833,6 +876,23 @@ def main() -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "at": t.label, **t.extra,
             "card": card})
+    # B1's first design (the team layout, which a pinned sender tile
+    # selects) on the same inputs, for the record beside the new one
+    xk, bound, cfg = main_args[b1.name]
+    team_ms = time_ms(lambda: b1.jedi.run(xk, bound, cfg, cfg.n_objects),
+                      200)
+    rows[0]["team_design_ms"] = team_ms
+    print(f"  fused_jedinet_full team design (block_s={cfg.n_objects}) at "
+          f"{timings[b1.name].label}: {team_ms:.4f} ms  [{card}]")
+    t5 = timings[b5.name].extra
+    print(f"  flash_decode plan at {timings[b5.name].label}: "
+          f"{t5['partitions']} partitions of {t5['partition_keys']} keys, "
+          f"{t5['blocks']} blocks of {t5['warps_per_block']} warp(s), "
+          f"{t5['stages']}-stage ring, "
+          f"{t5['path']} path")
+    for label, design in b1_designs.items():
+        print(f"  fused_jedinet_full design at {label}: {design}")
+    rows[0]["designs"] = b1_designs
     # B2 at its widest shape, for the record beside its bound
     params = inet.init(0, c128, scale="lecun", device=dev)
     x = torch.from_numpy(make_jets(np.random.RandomState(1), batch,

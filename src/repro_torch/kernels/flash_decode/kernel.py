@@ -9,10 +9,16 @@ with ``torch.empty`` and launches the kernel on the current stream
 (raising on a non-zero ``cudaError_t``); on CPU tensors it runs the plain
 version :func:`~repro_torch.kernels.flash_decode.ref.flash_decode_ref`.
 It never catches and falls back.  ``flash_decode_kernel_call.launches``
-counts the launches.
+counts one per call: with several sequence partitions the C call
+launches the decode kernel and then the small kernel that combines the
+partitions, and both are that one launch.
 
-The kernel takes any S: its last sequence tile is masked by length, so
-the reference's rule ``S % chunk == 0`` has no counterpart.
+:func:`plan` splits the sequence into partitions so the grid fills the
+card at any batch, and picks the kernel's path: tensor cores for a bf16
+cache at G = 4 (danube's decode), CUDA cores otherwise.  The kernel takes any S:
+each partition's last tile is masked by length, so the reference's rule
+``S % chunk == 0`` has no counterpart; ``chunk`` here pins the keys per
+partition, the unit whose softmax carry is combined.
 """
 
 from __future__ import annotations
@@ -29,48 +35,164 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 LIB_NAME = "flash_decode"
 SOURCES = ("flash_decode.cu",)
 
-#: The kernel's shared-memory budget per block (the default dynamic limit,
-#: ``kMaxSmem`` in the source).
-SMEM_BUDGET = 48 * 1024
-#: Keys per sequence tile unless the caller asks for another.
-DEFAULT_CHUNK = 64
+#: Dynamic shared memory a block may opt into (``kMaxSmem`` in the source).
+SMEM_BUDGET = 227 * 1024
+#: Shared memory of one H100 SM that blocks can share, and what the card
+#: reserves per resident block.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
+#: Resident blocks and threads an SM takes at most, and the card's SMs.
+MAX_BLOCKS_PER_SM = 32
+MAX_THREADS_PER_SM = 2048
+SMS = 132
+#: Keys per ring stage: the CUDA-core path's (one per lane of the block's
+#: one warp) and the tensor-core path's (one mma tile); the ring's depth
+#: (``kTile`` / ``kMmaTile`` / ``kStages`` in the source).
+TILE = 32
+MMA_TILE = 16
+STAGES = 3
+#: 16-byte words a cache row may have (``kMaxWords``).
+MAX_WORDS = 32
+#: kv-heads a block of the tensor-core path takes at most (``kMaxHeads``).
+MAX_HEADS = 8
+#: Head widths of the tensor-core path (``flash_decode_mma_kernel``).
+MMA_WIDTHS = (32, 64, 80, 128)
+#: The grid aims at this many waves of resident blocks, and a partition
+#: has at least this many keys (its carry and its write are overhead).
+WAVES = 4
+MIN_PART_KEYS = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The kernel's shared-memory layout (``struct Layout`` in the
-    source): ``chunk`` keys per tile, K rows ``kst`` floats apart."""
+    """One launch: query rows taken ``gb`` at a time (``n_groups`` blocks
+    per kv-head group and partition), ``heads`` kv-heads per block (one
+    warp each), rows of ``words`` 16-byte words (``kst`` words apart in
+    shared memory), ``n_parts`` partitions of ``part_len`` keys walked in
+    ``tile``-key stages, ``smem_bytes`` of shared memory per block,
+    ``blocks`` blocks; ``mma``: the tensor-core path."""
 
-    chunk: int
-    d4: int
+    gb: int
+    n_groups: int
+    words: int
     kst: int
+    heads: int
+    tile: int
+    part_len: int
+    n_parts: int
+    stages: int
     smem_bytes: int
+    blocks: int
+    mma: bool
+
+    @property
+    def path(self) -> str:
+        """"mma" (the tensor-core products) or "fma" (CUDA cores)."""
+        return "mma" if self.mma else "fma"
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.heads
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return blocks_per_sm(self.smem_bytes, self.threads)
 
 
-def plan(g: int, d: int, s_len: int, chunk: int | None = None) -> Plan:
-    """The layout for G query rows of width D over S keys.
+def group_rows(g: int) -> int:
+    """Query rows a block takes: the largest of 8, 4, 2, 1 dividing G."""
+    return next(n for n in (8, 4, 2, 1) if g % n == 0)
 
-    The tile is ``chunk`` keys (default :data:`DEFAULT_CHUNK`), at most S,
-    and at most what fits :data:`SMEM_BUDGET`: K and V tiles in fp32, the
-    G rows of q and acc, the (G, C) scores, the carry and the tile's
-    kv_pos.  K rows are padded to an odd number of 16-byte words."""
+
+def block_heads(hkv: int) -> int:
+    """kv-heads a tensor-core block takes: the largest divisor of Hkv up
+    to :data:`MAX_HEADS` (they lie side by side in each cache row)."""
+    return max(n for n in range(1, MAX_HEADS + 1) if hkv % n == 0)
+
+
+def smem_bytes(gb: int, words: int, elem: int, heads: int = 1,
+               mma: bool = False) -> int:
+    """A block's shared memory: the ring (K and V rows ``words | 1``
+    16-byte words apart, kv_pos) and the p of its rows; the CUDA-core
+    path also keeps the group's q rows in fp32."""
+    kst = words | 1
+    if mma:
+        stage = 16 * MMA_TILE * kst * 2 * heads + 4 * MMA_TILE
+        return STAGES * stage + 4 * heads * gb * MMA_TILE
+    stage = 16 * TILE * 2 * kst + 4 * TILE
+    return STAGES * stage + 4 * gb * words * (16 // elem) + 4 * TILE * gb
+
+
+def blocks_per_sm(smem: int, threads: int = 32) -> int:
+    return min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // threads,
+               SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+def plan(b: int, hkv: int, g: int, d: int, s_len: int, elem: int,
+         chunk: int | None = None, *, aligned: bool = True) -> Plan:
+    """The launch for B sequences of S keys, Hkv kv-heads of G query rows
+    of width D, a cache of ``elem`` bytes a value (4 or 2), 16-byte
+    ``aligned`` or not.
+
+    The tensor-core path where it applies (a bf16 cache, aligned, G = 4,
+    D in :data:`MMA_WIDTHS`), with as many kv-heads a block as
+    :func:`block_heads` gives and the grid still covers the 132 SMs;
+    else the CUDA-core path.  ``chunk`` pins the keys per partition; by
+    default there are enough partitions that the grid holds
+    :data:`WAVES` waves of the blocks the card keeps resident, each of at
+    least :data:`MIN_PART_KEYS` keys (whole tiles) where S allows."""
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1, not {chunk}")
-    d4 = -(-d // 4) * 4
-    kst = d4 + 4 if (d4 // 4) % 2 == 0 else d4
-    per_key, fixed = kst + d4 + g + 1, g * (2 * d4 + 3)
-    fit = (SMEM_BUDGET // 4 - fixed) // per_key
-    if fit < 1:
-        raise ValueError(f"G={g} query rows of D={d} do not fit the "
-                         f"kernel's {SMEM_BUDGET} B of shared memory")
-    c = min(chunk or DEFAULT_CHUNK, max(s_len, 1), fit)
-    return Plan(c, d4, kst, 4 * (c * per_key + fixed))
+    if s_len < 1:
+        raise ValueError("the cache must hold at least one key")
+    per_word = 16 // elem
+    words = -(-d // per_word)
+    if words > MAX_WORDS:
+        raise ValueError(f"rows of D={d} x {elem} B are {words} 16-byte "
+                         f"words; the kernel takes at most {MAX_WORDS}")
+    gb = group_rows(g)
+    mma = elem == 2 and aligned and g == 4 and d in MMA_WIDTHS
+    heads = block_heads(hkv) if mma else 1
+    while True:
+        lay = _plan(b, hkv, g, d, s_len, elem, chunk, gb, words, heads, mma)
+        # fewer heads a block where the grid would leave SMs idle
+        if lay.blocks >= SMS or heads == 1:
+            return lay
+        heads = max(n for n in range(1, heads) if hkv % n == 0)
+
+
+def _plan(b, hkv, g, d, s_len, elem, chunk, gb, words, heads, mma) -> Plan:
+    tile = MMA_TILE if mma else TILE
+    smem = smem_bytes(gb, words, elem, heads, mma)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"{smem} B of shared memory exceeds the kernel's "
+                         f"{SMEM_BUDGET} B")
+    pairs = b * (hkv // heads) * (g // gb)
+    if chunk is None:
+        per_sm = blocks_per_sm(smem, 32 * heads)
+        want = -(-SMS * per_sm * WAVES // pairs)
+        parts = max(1, min(want, -(-s_len // MIN_PART_KEYS)))
+        part_len = -(-(-(-s_len // parts)) // tile) * tile
+    else:
+        part_len = min(int(chunk), s_len)
+    n_parts = -(-s_len // part_len)
+    return Plan(gb, g // gb, words, words | 1, heads, tile, part_len,
+                n_parts, STAGES, smem, pairs * n_parts, mma)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = build.load_library(LIB_NAME, SOURCES).flash_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+    lib = build.load_library(LIB_NAME, SOURCES)
+    for name, want in (("flash_decode_tile", TILE),
+                       ("flash_decode_mma_tile", MMA_TILE),
+                       ("flash_decode_stages", STAGES)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{name}() is {fn()}, the wrapper's {want}: "
+                               "rebuild in step")
+    fn = lib.flash_decode_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -104,9 +226,10 @@ def flash_decode_kernel_call(q, k, v, q_pos, kv_pos, *, chunk=None,
     q_pos: (B,) int32; kv_pos: (B, S) int32 (-1: unwritten) ->
     (B, Hkv, G, D) fp32.
 
-    CUDA tensors launch the kernel with ``chunk`` keys per sequence tile
-    (:func:`plan`); CPU tensors run the plain version.  Raises on what
-    the kernel does not take.
+    CUDA tensors launch the kernel (and, with more than one partition,
+    its combine) with ``chunk`` keys per partition, by default the
+    plan's (:func:`plan`); CPU tensors run the plain version.  Raises on
+    what the kernel does not take.
     """
     _check(q, k, v, q_pos, kv_pos, window)
     if q.device.type == "cpu":
@@ -117,22 +240,28 @@ def flash_decode_kernel_call(q, k, v, q_pos, kv_pos, *, chunk=None,
         raise ValueError("q, k, v, q_pos and kv_pos must be contiguous")
     b, hkv, g, d = q.shape
     s_len = k.shape[1]
-    lay = plan(g, d, s_len, chunk)
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
+    lay = plan(b, hkv, g, d, s_len, k.element_size(), chunk,
+               aligned=k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    part = None if lay.n_parts == 1 else torch.empty(
+        b * hkv * g * lay.n_parts * (d + 2), dtype=torch.float32,
+        device=q.device)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), b, s_len, hkv, g, d,
-        0 if window is None else int(window), lay.chunk, lay.kst,
-        lay.smem_bytes, int(k.dtype == torch.bfloat16),
+        kv_pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), b, s_len, hkv, g, d,
+        0 if window is None else int(window), lay.part_len, lay.n_parts,
+        lay.gb, lay.words, lay.kst, lay.heads, lay.smem_bytes,
+        int(k.dtype == torch.bfloat16), int(lay.mma),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_decode_launch failed: cudaError_t {err} "
             f"({torch.cuda.get_device_name(q.device)}, B={b}, S={s_len}, "
-            f"Hkv={hkv}, G={g}, D={d}, chunk {lay.chunk}, "
-            f"{lay.smem_bytes} B shared memory)")
+            f"Hkv={hkv}, G={g}, D={d}, {lay.n_parts} partitions of "
+            f"{lay.part_len} keys, {lay.smem_bytes} B shared memory)")
     flash_decode_kernel_call.launches += 1
     return out
 

@@ -13,9 +13,10 @@ def flash_decode(q, k, v, q_pos, kv_pos, *, window=None, chunk=None):
     q: (B, H, D) unscaled; k/v: (B, S, Hkv, D) fp32 or bf16; q_pos: (B,);
     kv_pos: (B, S), -1 for unwritten slots.  Returns (B, H, D) float32.
     q is scaled by 1/sqrt(D) in fp32 and grouped as (B, Hkv, G, D), G =
-    H / Hkv; ``chunk`` is the kernel's sequence tile (any S, no divisor
-    needed).  On the card one launch of kernel B5; on the CPU its plain
-    version.
+    H / Hkv; ``chunk`` pins the kernel's keys per sequence partition (any
+    S, no divisor needed; default: the plan's).  On the card one launch
+    of kernel B5 (its partitions combined in the same call); on the CPU
+    its plain version.
     """
     b, h, d = q.shape
     hkv = k.shape[2]

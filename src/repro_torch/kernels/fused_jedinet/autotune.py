@@ -1,10 +1,13 @@
 """Shared-memory layouts and launch choices of the JEDI-net kernels.
 
-Two CUDA kernels share this model: the whole network
-(``kernels/csrc/fused_jedinet_full.cu``, B1) and the edge block alone
+The *team* layout below is shared by the edge block
 (``kernels/csrc/fused_jedinet_edge.cu``, B3, which stops at Ebar and has
-no f_O / phi_O regions).  Each gives one block ``events_per_block``
-whole events.  Everything a block touches lives in its dynamic shared
+no f_O / phi_O regions) and by the whole network
+(``kernels/csrc/fused_jedinet_full.cu``, B1) where f_R is wider than a
+lane's registers or a sender tile is pinned; B1's own *warp* design
+(:func:`plan_full`, one thread per edge) has its plan at the end of this
+module.  The team layout gives one block ``events_per_block`` whole
+events.  Everything a block touches lives in its dynamic shared
 memory, in the regions below (fp32 words, every region a multiple of 4
 words so ``float4`` loads stay aligned):
 
@@ -103,6 +106,7 @@ class Layout:
     smem_words: int
     per_event_bytes: int    # bytes one more event adds
     reserved_bytes: int     # bytes before the first event
+    design: str = "team"    # B1: "team" or "warp" (see plan_full)
 
     @property
     def smem_bytes(self) -> int:
@@ -189,7 +193,10 @@ def plan_launch(n_objects: int, n_features: int, fr_widths, fo_widths=(),
 
 
 def layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
-    """:func:`plan_launch` for a config and its (raw or quantized) params."""
+    """:func:`plan_launch` for a config and its (raw or quantized) params:
+    the team layout, whose per-event bytes and reservation set the
+    ``fused_full`` bucket ladder (B1's warp design has no batch tile: it
+    takes any batch, one event per block at a time)."""
     return plan_launch(cfg.n_objects, cfg.n_features,
                        mlp_widths(params["fr"]), mlp_widths(params["fo"]),
                        mlp_widths(params["phi"]), block_s=block_s)
@@ -200,3 +207,96 @@ def edge_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
     (only f_R's widths count)."""
     return plan_launch(cfg.n_objects, cfg.n_features,
                        mlp_widths(params["fr"]), block_s=block_s)
+
+
+# ---- B1's own plan ---------------------------------------------------------
+#: Register widths of B1's warp design (``RW`` in the source), the most
+#: threads a block of each may have (``warp_threads``) and the receivers a
+#: lane takes at once (``warp_rpl``): RPL x RW activations and as many
+#: sums per lane must fit the block's registers.
+WARP_REG_WIDTHS = {20: 512, 32: 256, 64: 256}
+WARP_RPL = {20: 2, 32: 2, 64: 1}
+
+
+#: The widest D_e of B1's warp design (``kEdgeRegs``).
+WARP_EDGE_REGS = 8
+
+
+def full_design(fr_widths, block_s: int | None = None) -> str:
+    """B1's design for f_R's widths (``[h1, ..., d_e]``): ``"warp"``
+    where every width fits a lane's registers (D_e at most
+    :data:`WARP_EDGE_REGS`) and no sender tile is pinned, else
+    ``"team"`` (the first port's layout, which ``block_s`` pins)."""
+    if block_s is None and max(fr_widths) <= max(WARP_REG_WIDTHS) \
+            and fr_widths[-1] <= WARP_EDGE_REGS:
+        return "warp"
+    return "team"
+
+
+def _warp_layout(n_o, p, entries, d_e, d_o, fr_widths, fo_widths,
+                 phi_widths) -> Layout:
+    rw = min(w for w in WARP_REG_WIDTHS if w >= max(fr_widths))
+    rpl = WARP_RPL[rw]
+    units = -(-n_o // rpl)                        # groups of RPL receivers
+    max_warps = WARP_REG_WIDTHS[rw] // WARP - 1   # and the readout warp
+    per_warp = -(-units // max_warps)             # groups per warp
+    warps = -(-units // per_warp)
+    h1_p, do_p = entries[0].out_p, pad4(d_o)
+    ust = h1_p | 1                                # odd: conflict-free rows
+    n_fr = len(fr_widths) + 1                     # w1r, w1s, the rest
+    fst = max([pad4(p + d_e)] + [e.out_p for e in
+                                 entries[n_fr:n_fr + len(fo_widths)]]) | 1
+    half = pad4(max(d_o, *phi_widths))
+    w_words = sum(e.in_dim * e.out_p for e in entries)
+    b_words = pad4(sum(e.out_p for e in entries if e.b_off >= 0))
+    # f_R's layers after the first, padded to rw x rw (the last to rw x
+    # WARP_EDGE_REGS), then their biases
+    n_rest = len(fr_widths) - 1
+    pool = 0 if n_rest == 0 else (n_rest - 1) * (rw * rw + rw) \
+        + rw * WARP_EDGE_REGS + WARP_EDGE_REGS
+    regions = [("w", w_words), ("b", b_words), ("x", pad4(n_o * p)),
+               ("part", pad4(n_o * ust)), ("us", pad4(n_o * ust)),
+               ("ebar", pad4(2 * n_o * fst)), ("obuf", 2 * n_o * do_p),
+               ("slot", 2 * half), ("pool", pad4(pool))]
+    offsets, off = {}, 0
+    for name, words in regions:
+        offsets[name] = off
+        off += words
+    per_event = pad4(n_o * p) + 2 * pad4(n_o * ust) + pad4(2 * n_o * fst) \
+        + 2 * n_o * do_p
+    return Layout(1, WARP, per_warp * rpl, 1, (warps + 1) * WARP, rw,
+                  2 * half, offsets, off, 4 * per_event,
+                  4 * (off - per_event), design="warp")
+
+
+def plan_full(n_objects: int, n_features: int, fr_widths, fo_widths,
+              phi_widths, *, block_s: int | None = None,
+              budget_bytes: int = SMEM_BLOCK_BYTES) -> Layout:
+    """B1's launch: the warp design (one thread per edge, one warp per
+    receiver, one event per block at a time) where :func:`full_design`
+    says so and its shared memory fits, else the team layout of
+    :func:`plan_launch`.  Layout fields of the warp design: ``block_s``
+    is the 32-sender lane tile, ``ks`` the receivers per compute warp
+    (taken :data:`WARP_RPL` at a time), ``threads`` the compute warps'
+    and the readout warp's, ``mw`` the register width, ``slot_stride``
+    the readout warp's two activation buffers; ``ebar`` holds f_O's two
+    activation buffers (a row per node), ``obuf`` two events' f_O
+    outputs and ``pool`` f_R's layers after the first, zero-padded to
+    ``mw`` wide."""
+    n_o, p = int(n_objects), int(n_features)
+    if full_design(fr_widths, block_s) == "warp":
+        entries = kernel_entries(p, fr_widths, fo_widths, phi_widths)
+        lay = _warp_layout(n_o, p, entries, fr_widths[-1], fo_widths[-1],
+                           fr_widths, fo_widths, phi_widths)
+        if lay.smem_bytes <= budget_bytes:
+            return lay
+    return plan_launch(n_o, p, fr_widths, fo_widths, phi_widths,
+                       block_s=block_s, budget_bytes=budget_bytes)
+
+
+def full_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
+    """:func:`plan_full` for a config and its (raw or quantized) params:
+    the launch B1 runs."""
+    return plan_full(cfg.n_objects, cfg.n_features, mlp_widths(params["fr"]),
+                     mlp_widths(params["fo"]), mlp_widths(params["phi"]),
+                     block_s=block_s)

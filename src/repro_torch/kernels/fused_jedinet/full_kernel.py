@@ -132,20 +132,21 @@ def mlp_plain(h, arrays, scales, act, bf16: bool):
 
 
 def edge_sum_plain(xf, fr_arrays, scales, act, bf16: bool,
-                   block_s: int | None = None):
+                   block_s: int | None = None, *, tree: bool = False):
     """Ebar = sum over senders s != r of f_R(x_r || x_s): (B, N_o, D_e).
 
     The kernels' edge block in plain PyTorch: ``xf`` the (B, N_o, P)
     events in fp32 (holding compute-dtype values); f_R's first layer
     split into ``u_r`` / ``u_s`` (``fr_arrays = [w1r, w1s, b1, w2, b2,
-    ...]``, ``scales`` one per weight tensor, None: not int8); senders
-    taken ``block_s`` at a time (all at once by default); the self-edge
-    masked out before the sum.
+    ...]``, ``scales`` one per weight tensor, None: not int8); the
+    self-edge masked out before the sum.  Senders are summed as the team
+    layout sums them, ``block_s`` at a time (all at once by default), or,
+    with ``tree``, in B1 warp design's order (:func:`tree_sender_sum`).
     """
     w1r, w1s, b1, rest = fr_arrays[0], fr_arrays[1], fr_arrays[2], \
         fr_arrays[3:]
     bsz, n_o, _ = xf.shape
-    bs = n_o if block_s is None else max(1, min(int(block_s), n_o))
+    bs = n_o if block_s is None or tree else max(1, min(int(block_s), n_o))
     u_r = mmq(xf, w1r, scales[0], bf16)                     # (B, N_o, H1)
     d_e = (rest[-2] if rest else w1r).shape[-1]
     acc = xf.new_zeros((bsz, n_o, d_e))
@@ -158,8 +159,31 @@ def edge_sum_plain(xf, fr_arrays, scales, act, bf16: bool,
             h = mlp_plain(act(h), rest, scales[2:], act, bf16)
         send = torch.arange(s0, s0 + xs.shape[1], device=xf.device)[None, :]
         keep = (recv != send)[None, :, :, None]
-        acc = acc + torch.where(keep, h, torch.zeros_like(h)).sum(2)
+        h = torch.where(keep, h, torch.zeros_like(h))
+        if tree:
+            return tree_sender_sum(h)
+        acc = acc + h.sum(2)
     return acc
+
+
+def tree_sender_sum(h):
+    """(B, N_o, S, D) -> (B, N_o, D), summed over senders as B1's warp
+    design sums them: sender s on lane s % 32, each lane adding its
+    senders in ascending order, then the lanes by the xor tree of
+    offsets 16, 8, 4, 2, 1 (pairwise adds, which every lane of the
+    butterfly takes in the same order)."""
+    bsz, n_o, s, d = h.shape
+    tiles = -(-s // 32)
+    h = torch.nn.functional.pad(h, (0, 0, 0, tiles * 32 - s))
+    h = h.reshape(bsz, n_o, tiles, 32, d)
+    acc = h[:, :, 0]
+    for t in range(1, tiles):
+        acc = acc + h[:, :, t]
+    width = 32
+    while width > 1:
+        width //= 2
+        acc = acc[:, :, :width] + acc[:, :, width:2 * width]
+    return acc[:, :, 0]
 
 
 def readout_plain(xf, ebar, fo_arrays, phi_arrays, s_fo, s_phi, act,
@@ -181,8 +205,11 @@ def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
 
     ``fr_arrays = [w1r, w1s, b1, w2, b2, ...]``; ``scales`` one fp32
     scalar per weight tensor ``[w1r, w1s, w2.., fo.., phi..]`` for int8
-    weights, else None.  Senders are taken ``block_s`` at a time (all at
-    once by default); the self-edge is masked out before the sum.
+    weights, else None.  The self-edge is masked out before the sum, and
+    the senders are summed in the order of the design the kernel runs
+    for these widths (:func:`~repro_torch.kernels.fused_jedinet.autotune.full_design`):
+    the warp design's tree, or the team layout's sender tiles of
+    ``block_s`` (all at once by default).
     """
     bf16 = x.dtype == torch.bfloat16
     act = ACTIVATIONS[activation]
@@ -190,7 +217,11 @@ def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
     n_fo = len(fo_arrays) // 2
     s = plain_scales(scales, n_fr_w + n_fo + len(phi_arrays) // 2)
     xf = x.float()
-    ebar = edge_sum_plain(xf, fr_arrays, s[:n_fr_w], act, bf16, block_s)
+    fr_w = [int(fr_arrays[0].shape[-1])] + [int(w.shape[-1])
+                                            for w in fr_arrays[3::2]]
+    tree = autotune.full_design(fr_w, block_s) == "warp"
+    ebar = edge_sum_plain(xf, fr_arrays, s[:n_fr_w], act, bf16, block_s,
+                          tree=tree)
     return readout_plain(xf, ebar, fo_arrays, phi_arrays,
                          s[n_fr_w:n_fr_w + n_fo], s[n_fr_w + n_fo:], act,
                          bf16)
@@ -216,6 +247,7 @@ class KernelWeights:
     wpack: torch.Tensor | None = None
     bpack: torch.Tensor | None = None
     _launch_cache: dict = dataclasses.field(default_factory=dict)
+    _meta_cache: dict = dataclasses.field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -345,13 +377,19 @@ def launch(fn, symbol: str, x: torch.Tensor, weights: KernelWeights,
     raises on a non-zero ``cudaError_t``."""
     _, head, ent, scales = launch_header
     bf16 = int(x.dtype == torch.bfloat16)
-    vals = dict(head, x_bf16=bf16, compute_bf16=bf16,
-                act=ACT_CODES[activation], batch=x.shape[0])
-    meta_list = [vals[f] for f in HEADER_FIELDS] + ent
-    meta = (ctypes.c_int * len(meta_list))(*meta_list)
+    # the launch's ints, built once per shape: building them in Python
+    # took longer than B1's kernel runs
+    key = (id(launch_header), x.shape[0], bf16, activation)
+    meta = weights._meta_cache.get(key)
+    if meta is None:
+        vals = dict(head, x_bf16=bf16, compute_bf16=bf16,
+                    act=ACT_CODES[activation], batch=x.shape[0])
+        meta_list = [vals[f] for f in HEADER_FIELDS] + ent
+        meta = (ctypes.c_int * len(meta_list))(*meta_list)
+        weights._meta_cache[key] = meta
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), weights.wpack.data_ptr(), weights.bpack.data_ptr(),
-             out.data_ptr(), meta, len(meta_list), scales, stream)
+             out.data_ptr(), meta, len(meta), scales, stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol}_launch failed: cudaError_t {err} "
@@ -365,9 +403,11 @@ def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
                                    block_s: int | None = None):
     """x: (B, N_o, P) fp32 or bf16 (the compute dtype) -> logits (B, T) fp32.
 
-    CUDA tensors launch the kernel (no batch padding: the kernel masks
-    the ragged last block); CPU tensors run :func:`fused_forward_full_plain`.
-    ``block_s`` pins the sender tile (default: the autotuner's choice).
+    CUDA tensors launch the kernel in the design :func:`~repro_torch.kernels.fused_jedinet.autotune.plan_full`
+    picks (no batch padding: the warp design walks events, the team
+    layout masks its ragged last block); CPU tensors run
+    :func:`fused_forward_full_plain`.  ``block_s`` pins the team
+    layout's sender tile (default: the planner's design and tile).
     Raises on shapes, types or devices the kernel does not take.
     """
     if runs_plain(x, weights, activation):
@@ -378,13 +418,15 @@ def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
     n_o = x.shape[1]
     header = weights.launch_header(
         ("full", n_o, n_targets, block_s),
-        lambda: autotune.plan_launch(n_o, weights.n_features,
-                                     *weights.widths(), block_s=block_s),
+        lambda: autotune.plan_full(n_o, weights.n_features,
+                                   *weights.widths(), block_s=block_s),
         n_o, n_targets)
     out = torch.empty((x.shape[0], n_targets), dtype=torch.float32,
                       device=x.device)
-    launch(load_launcher(LIB_NAME, SOURCES, "jedi_fused_full"),
-           "jedi_fused_full", x, weights, out, header, activation)
+    symbol = "jedi_fused_full_warp" if header[0].design == "warp" \
+        else "jedi_fused_full"
+    launch(load_launcher(LIB_NAME, SOURCES, symbol), symbol, x, weights,
+           out, header, activation)
     fused_forward_full_kernel_call.launches += 1
     return out
 

@@ -158,3 +158,53 @@ def test_flash_decode_kernel_matches_plain_version(cuda, b, h, hkv, d, s,
 def _check_tol(out, ref, tol):
     scale = max(1.0, float(ref.abs().max()))
     assert float((out - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,masked", [(1, False), (2, True)])
+def test_flash_decode_partitions_combine_at_danube_width(cuda, b, masked):
+    """h2o-danube-1.8b's decode shape at B = 1 and 2: 128 partitions
+    combined, 4 or 8 kv-heads a block on the tensor-core path; a row with
+    no valid key gives the mean of v across all partitions."""
+    rng = np.random.RandomState(2)
+    s, h, hkv, d = 32768, 32, 8, 80
+    q = torch.from_numpy(rng.normal(0, 1, (b, h, d)).astype(np.float32))
+    kv = [torch.from_numpy(rng.normal(0, 1, (b, s, hkv, d))
+                           .astype(np.float32)).to(torch.bfloat16).to(cuda)
+          for _ in range(2)]
+    q_pos = torch.full((b,), s - 1, dtype=torch.int32)
+    kv_pos = torch.arange(s, dtype=torch.int32)[None].repeat(b, 1)
+    if masked:
+        kv_pos[0] = -1
+    q, q_pos, kv_pos = q.to(cuda), q_pos.to(cuda), kv_pos.to(cuda)
+    lay = FDK.plan(b, hkv, h // hkv, d, s, 2)
+    assert lay.mma and lay.n_parts > 1 and lay.blocks >= 132
+    out = fd_ops.flash_decode(q, *kv, q_pos, kv_pos)
+    qg = (q * (1.0 / d ** 0.5)).reshape(b, hkv, h // hkv, d)
+    ref = FDK.flash_decode_ref(qg, *kv, q_pos, kv_pos).reshape(b, h, d)
+    _check_tol(out, ref, 2e-4)
+    assert torch.equal(out, fd_ops.flash_decode(q, *kv, q_pos, kv_pos))
+    if masked:
+        mean_v = kv[1][0].float().mean(0).repeat_interleave(h // hkv, 0)
+        assert float((out[0] - mean_v).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_o,block_s,design", [(50, None, "warp"),
+                                                (30, 30, "team")])
+def test_fused_full_both_designs(cuda, n_o, block_s, design):
+    """B1's warp design at N_o = 50 (each lane walks two sender tiles of
+    32) and its team layout (a pinned sender tile) against the plain
+    version."""
+    cfg = inet.JediNetConfig(n_objects=n_o)
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    x = torch.from_numpy(make_jets(np.random.RandomState(1), 13, n_o)[0])
+    x = x.to(cuda)
+    bound = ops.bind_full(params, cfg)
+    from repro_torch.kernels.fused_jedinet import autotune
+    assert autotune.full_layout_for(cfg, params,
+                                    block_s=block_s).design == design
+    out = ops.fused_forward_full(bound, cfg, x, block_s=block_s)
+    ref = FK.fused_forward_full_plain(x, bound.fr, bound.fo, bound.phi,
+                                      activation="relu", block_s=block_s)
+    _check(out, ref, ops.fused_forward_full(bound, cfg, x, block_s=block_s))

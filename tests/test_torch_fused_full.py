@@ -34,6 +34,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 CFGS = {
     "30p": dict(n_objects=30),
+    "50p": dict(n_objects=50, fr_hidden=(50, 50, 50), fo_hidden=(50, 50, 50),
+                phi_hidden=(50, 50, 50)),
     "13p-narrow": dict(n_objects=13, fr_hidden=(16, 12), fo_hidden=(10,),
                        phi_hidden=(12,)),
 }
@@ -87,6 +89,104 @@ def test_fused_full_bf16_matches_jax_bf16():
     fp32 = tinet.forward_fused_full(tp, tcfg.with_(compute_dtype="float32"),
                                     torch.from_numpy(x)).numpy()
     assert np.abs(got - fp32).max() > 0.0        # the bf16 path is live
+
+
+def _warp_design_emulation(x, bound, act):
+    """B1's warp design step for step in numpy fp32: u_r and u_s per node;
+    for receiver r the lane of sender s runs f_R's other layers on
+    act(u_r + u_s + b1); the self-edge lane adds zero; lane l sums its
+    senders l, l + 32, ... in ascending order, then the lanes by the xor
+    tree (16, 8, 4, 2, 1); f_O per node on [x_r || Ebar_r], the node sum
+    in node order, phi_O."""
+    f = ACT_NP[act]
+    fr = [t.numpy().astype(np.float32) for t in bound.fr]
+    fo = [t.numpy().astype(np.float32) for t in bound.fo]
+    phi = [t.numpy().astype(np.float32) for t in bound.phi]
+    sc = [np.float32(1.0)] * 64 if bound.scales is None else \
+        [np.float32(float(v)) for v in bound.scales]
+
+    def mlp(h, arrays, scales):
+        n = len(arrays) // 2
+        for i in range(n):
+            h = (h @ arrays[2 * i]) * scales[i] + arrays[2 * i + 1]
+            if i < n - 1:
+                h = f(h)
+        return h
+
+    n_fr_w = 2 + (len(fr) - 3) // 2
+    n_fo = len(fo) // 2
+    out = []
+    for xe in x.astype(np.float32):
+        n_o = xe.shape[0]
+        u_r, u_s = (xe @ fr[0]) * sc[0], (xe @ fr[1]) * sc[1]
+        h = f((u_r[:, None, :] + u_s[None, :, :]) + fr[2])  # (recv, send, H1)
+        e = mlp(h, fr[3:], sc[2:n_fr_w])
+        e = np.where(np.eye(n_o, dtype=bool)[:, :, None], np.float32(0), e)
+        tiles = -(-n_o // 32)
+        e = np.concatenate([e, np.zeros((n_o, tiles * 32 - n_o, e.shape[2]),
+                                        np.float32)], 1)
+        lanes = e[:, 0:32]
+        for t in range(1, tiles):
+            lanes = lanes + e[:, 32 * t:32 * t + 32]
+        width = 32
+        while width > 1:
+            width //= 2
+            lanes = lanes[:, :width] + lanes[:, width:2 * width]
+        ebar = lanes[:, 0]
+        node = mlp(np.concatenate([xe, ebar], 1), fo,
+                   sc[n_fr_w:n_fr_w + n_fo])
+        osum = np.zeros(node.shape[1], np.float32)
+        for r in range(n_o):
+            osum = osum + node[r]
+        out.append(mlp(osum, phi, sc[n_fr_w + n_fo:]))
+    return np.stack(out)
+
+
+ACT_NP = {"relu": lambda v: np.maximum(v, np.float32(0))}
+
+
+@pytest.mark.parametrize("cfg,quant", [("30p", False), ("50p", False),
+                                       ("30p", True)])
+def test_warp_design_sender_order_matches_plain_and_jax(cfg, quant):
+    """B1's warp-per-receiver design (one lane per sender, sender tiles of
+    32 at 50p, the xor-tree sender sum), emulated in numpy, against the
+    plain version (which sums in the same order) and the JAX fused_full."""
+    jcfg, tcfg, jp, tp, x = _setup(cfg, 2)
+    assert autotune.plan_full(
+        tcfg.n_objects, tcfg.n_features, *[
+            shared.mlp_widths(tp[k]) for k in ("fr", "fo", "phi")]
+    ).design == "warp"
+    if quant:
+        jp = jax.tree_util.tree_map(np.asarray, jint8.quantize_params_int8(jp))
+        tp = tint8.quantize_params_int8(tp)
+    bound = ops.bind_full(tp, tcfg)
+    emu = _warp_design_emulation(x, bound, tcfg.activation)
+    plain = FK.fused_forward_full_plain(
+        torch.from_numpy(x), bound.fr, bound.fo, bound.phi,
+        activation=tcfg.activation, scales=bound.scales).numpy()
+    scale = max(1.0, float(np.abs(plain).max()))
+    assert np.abs(emu - plain).max() <= 2e-6 * scale
+    forward = jint8.forward_int8_fused_full if quant \
+        else jinet.forward_fused_full
+    want = np.asarray(forward(jp, jcfg, jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(emu, want, rtol=0, atol=5e-4 * scale)
+
+
+def test_tree_sender_sum_is_the_xor_butterfly():
+    """The plain version's sender sum follows the lanes' xor tree exactly
+    (bitwise), at one tile and at several."""
+    rng = np.random.RandomState(3)
+    for n_s in (13, 30, 50, 64):
+        h = torch.from_numpy(rng.normal(0, 1, (2, 3, n_s, 5))
+                             .astype(np.float32))
+        lanes = [torch.zeros(2, 3, 5) for _ in range(32)]
+        for s in range(n_s):
+            lanes[s % 32] = h[:, :, s] if s < 32 else lanes[s % 32] + \
+                h[:, :, s]
+        for off in (16, 8, 4, 2, 1):
+            lanes = [lanes[i] + lanes[i ^ off] for i in range(32)]
+        assert torch.equal(FK.tree_sender_sum(h), lanes[0])
+        assert all(torch.equal(lanes[0], v) for v in lanes)
 
 
 @pytest.mark.parametrize("block_s", [1, 4, 5, 13])
@@ -173,23 +273,49 @@ def test_int8_pack_keeps_int8_and_shares_w1_scale():
     assert len(bound.scales) == len(bound.weights_and_biases())
 
 
-@pytest.mark.parametrize("n_o,fr,fo,phi,block_s", [
-    (30, [20, 20, 20, 8], [20, 20, 20, 24], [20, 20, 20, 5], None),
-    (50, [50, 50, 50, 8], [50, 50, 50, 24], [50, 50, 50, 5], None),
-    (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], None),
-    (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], 48),
-    (13, [16, 12], [10], [12, 5], 5),
+@pytest.mark.parametrize("n_o,fr,fo,phi,block_s,design", [
+    (30, [20, 20, 20, 8], [20, 20, 20, 24], [20, 20, 20, 5], None, "warp"),
+    (50, [50, 50, 50, 8], [50, 50, 50, 24], [50, 50, 50, 5], None, "warp"),
+    (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], None, "team"),
+    (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], 48, "team"),
+    (13, [16, 12], [10], [12, 5], 5, "team"),
 ])
-def test_layout_fits_and_is_aligned(n_o, fr, fo, phi, block_s):
-    lay = autotune.plan_launch(n_o, 16, fr, fo, phi, block_s=block_s)
+def test_layout_fits_and_is_aligned(n_o, fr, fo, phi, block_s, design):
+    """B1's plan: the warp design where f_R fits a lane's registers and no
+    sender tile is pinned, else the team layout; either fits the opt-in
+    shared memory with every region 16-byte aligned."""
+    lay = autotune.plan_full(n_o, 16, fr, fo, phi, block_s=block_s)
+    assert lay.design == design
     assert lay.smem_bytes <= shared.SMEM_BLOCK_BYTES
     assert lay.threads % 32 == 0 and lay.threads % lay.team == 0
     assert lay.threads <= shared.MAX_THREADS_PER_BLOCK
+    offs = [lay.offsets[k] for k in lay.offsets]
+    assert offs == sorted(offs) and all(o % 4 == 0 for o in offs)
+    if design == "warp":
+        rw = lay.mw
+        assert rw in autotune.WARP_REG_WIDTHS and max(fr) <= rw
+        assert lay.threads <= autotune.WARP_REG_WIDTHS[rw]
+        assert (lay.threads // 32 - 1) * lay.ks >= n_o   # + readout warp
+        assert lay.ks % autotune.WARP_RPL[rw] == 0
+        assert lay.team == 1 and lay.events_per_block == 1
+        assert lay.slot_stride % 2 == 0
+        assert lay.slot_stride // 2 >= max(fo[-1], *phi)
+        assert set(lay.offsets) == {"w", "b", "x", "part", "us", "ebar",
+                                    "obuf", "slot", "pool"}
+        fst = max(autotune.pad4(16 + fr[-1]), *map(autotune.pad4, fo)) | 1
+        assert lay.offsets["obuf"] - lay.offsets["ebar"] \
+            == autotune.pad4(2 * n_o * fst)
+        pool = (len(fr) - 2) * (rw * rw + rw) + rw * 8 + 8
+        assert lay.smem_words - lay.offsets["pool"] == autotune.pad4(pool)
+        ust = autotune.pad4(fr[0]) | 1
+        assert lay.offsets["us"] - lay.offsets["part"] >= n_o * ust
+        return
+    assert lay == autotune.plan_launch(n_o, 16, fr, fo, phi, block_s=block_s)
     assert lay.team in (1, 2, 4, 8, 16, 32)
     assert lay.slot_stride % 2 == 1
     offs = [lay.offsets[k] for k in ("w", "b", "x", "ebar", "part", "us",
                                      "obuf", "osum", "slot")]
-    assert offs == sorted(offs) and all(o % 4 == 0 for o in offs)
+    assert offs == sorted(offs)
     if block_s is not None:
         assert lay.block_s == block_s
 
