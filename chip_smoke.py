@@ -8,14 +8,16 @@ non-zero on any failure:
 1. the card (``nvidia-smi`` name and power limit), the torch, CUDA and
    ``nvcc`` versions, and the five kernels' build from the sources in the
    checkout (one ``nvcc`` per source, all started together), with each
-   kernel's registers and spills;
+   kernel's registers and spills, and no spills in the register-resident
+   JEDI kernels that jedi_30p and jedi_50p run;
 2. every kernel against its plain PyTorch version on the card, and two
-   launches bitwise equal:
+   launches bitwise equal, with the design each JEDI case runs:
    * B1 ``fused_jedinet_full`` and B2 ``jedi_linear_full``: jedi_30p in
      fp32 (odd batches too), bf16 (and that bf16 really rounds) and
-     int8, jedi_50p (B1), jedi_tracks_128, every activation;
-   * B3 ``fused_jedinet_edge``: jedi_30p in fp32 and bf16, jedi_50p and
-     jedi_tracks_128;
+     int8, jedi_50p, jedi_tracks_128, every activation;
+   * B3 ``fused_jedinet_edge``: jedi_30p in fp32 at B = 1, 13, 256 and
+     257 and in bf16 (and that bf16 really rounds), jedi_30p with a
+     pinned sender tile (the team layout), jedi_50p and jedi_tracks_128;
    * B4 ``fm_interaction``: unit-normal v in fp32 and bf16 at B = 1, 7,
      513 and 262,144 (F=39, K=10, the ``fm`` config) and at F=26, K=16;
    * B5 ``flash_decode``: the reference's three sweep shapes, D=80 at
@@ -29,8 +31,9 @@ non-zero on any failure:
      at jedi_30p and jedi_tracks_128 and ``int8_jedi_linear_full`` (B2),
      and ``fused`` (B3) through ``ResilientEngine``, each serving a
      stream of 256-event batches and a few requests with no demotion, no
-     failure counter, the path's kernel launched for every served batch,
-     and the served logits equal to the path's reference on the card;
+     failure counter, the batches in bucket 256, the path's kernel
+     launched once for every served batch, and the served logits equal
+     to the path's reference on the card;
    * FM scoring at the full ``fm`` width (90.2M embedding rows on the
      card): ``models.recsys.forward(use_kernel=True)`` on ``ctr_batches``
      ids at ``serve_p99`` (B=512) and ``serve_bulk`` (B=262,144), one B4
@@ -44,7 +47,13 @@ non-zero on any failure:
 4. each kernel's time at its main path's shape beside its plain
    version's time, its bound and, where one PyTorch call computes the
    same function, that call's time (``scaled_dot_product_attention`` for
-   B5); B1's design per case and B5's partitions, stages and path.
+   B5): CUDA events around back-to-back eager launches, the median of 5
+   windows with their spread; for B1-B3 also
+   the device time per launch from ``torch.profiler`` and from a CUDA
+   graph of 20 launches (the eager loop can measure the host's enqueue
+   at these sizes); B1's and B3's team designs beside their warp
+   designs; the JEDI kernels' designs per case and B5's partitions,
+   stages and path.
 
 Before the last line it prints one JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -137,20 +146,78 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events,
-    after a warm-up)."""
+#: Windows of ``reps`` launches that ``time_ms`` times: the median of 5
+#: keeps one stall of the shared host (a few ms, spread over a window of
+#: 20-us launches) out of the number.
+WINDOWS = 5
+
+
+def time_ms(fn, reps: int, spread: list | None = None) -> float:
+    """Time per call of ``fn()`` between CUDA events around ``reps``
+    back-to-back calls (after a warm-up): the median of WINDOWS such
+    windows, whose (min, max) is appended to ``spread`` when given."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    per_call = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(stop) / reps)
+    if spread is not None:
+        spread.append((min(per_call), max(per_call)))
+    return sorted(per_call)[WINDOWS // 2]
+
+
+def profiled_ms(fn, kernel: str, launches: int = 20) -> float | None:
+    """Device time per launch of the kernels whose names hold ``kernel``,
+    from ``torch.profiler``'s ``key_averages()`` over ``launches`` calls
+    of ``fn`` (after one warm call); None when the trace holds no device
+    time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.device_time_total > 0:
+            total += ev.device_time_total
+            count += ev.count
+    return total / count / 1e3 if count else None
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 20) -> float:
+    """Device time per launch of ``fn`` from a CUDA graph of ``launches``
+    captured calls, replayed ``replays`` times between CUDA events: no
+    host work between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # built, opted in, launch header cached
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / (replays * launches)
 
 
 def _mlp_ops(dims) -> int:
@@ -677,6 +744,7 @@ def main() -> int:
         for f in futs:
             f.result()                    # raises with nvcc's output
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s")
+    spills = {}
     for k in kernels:
         fn = ""
         for line in build.build_log(*k.lib).splitlines():
@@ -684,10 +752,28 @@ def main() -> int:
                 fn = kernel_name(line.split()[-1])
             if "registers" in line or "spill" in line:
                 print(f"  {k.name} {fn}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+    # the register-resident designs at jedi_30p (RW 20, one sender tile)
+    # and jedi_50p (RW 64, two tiles), and B2's rows design (one kernel per
+    # activation)
+    rows = sorted(fn for fn in spills
+                  if fn.startswith("jedi_linear_rows_kernel<"))
+    check(len(rows) == len(ACTIVATIONS),
+          f"jedi_linear_rows_kernel: {len(rows)} instances built, one per "
+          f"activation ({len(ACTIVATIONS)})")
+    for fn in ("jedi_fused_full_warp_kernel<20,0>",
+               "jedi_fused_full_warp_kernel<64,1>",
+               "jedi_edge_block_warp_kernel<20,0>",
+               "jedi_edge_block_warp_kernel<64,1>", *rows):
+        check(spills.get(fn) == 0,
+              f"{fn}: {spills.get(fn, 'no report of')} bytes of spills")
 
     # ---- 2. kernels against their plain versions ------------------------
     print("== 2. kernels vs plain versions on the card")
-    b1_designs = {}
+    designs = {k.name: {} for k in (b1, b2, b3)}
 
     def case(k, label, cfg, batch, *, quant=False, block_s=None,
              tol=TOL_FP32):
@@ -706,9 +792,8 @@ def main() -> int:
         ref = j.plain(xk, bound, cfg, block_s)
         err, rel = err_of(out, ref)
         lay = j.layout(cfg, params, block_s)
-        design = getattr(lay, "design", "team")
-        if k is b1:
-            b1_designs[f"{label} B={batch}"] = design
+        design = lay.design
+        designs[k.name][f"{label} B={batch}"] = design
         check(out.shape == ref.shape and out.shape[0] == batch
               and bool(torch.isfinite(out).all()) and rel <= tol
               and torch.equal(out, again),
@@ -756,11 +841,18 @@ def main() -> int:
                 case(k, f"jedi_30p fp32 {act}", c30.with_(activation=act), 13)
     case(b1, "jedi_50p fp32", c50, 13)
     case(b1, "jedi_tracks_128 fp32 S=48", c128, 13, block_s=48)
+    for b in (13, 257):
+        case(b2, "jedi_50p fp32", c50, b)
     case(b2, "jedi_tracks_128 fp32", c128, 13)
+    for b in (1, 13, 257):
+        case(b3, "jedi_30p fp32", c30, b)
     main_err[b3.name], main_args[b3.name] = case(b3, "jedi_30p fp32", c30,
                                                  256)
-    case(b3, "jedi_30p bf16", bf30, 257, tol=TOL_BF16)
-    case(b3, "jedi_50p fp32", c50, 13)
+    bf16_rounds(b3, case(b3, "jedi_30p bf16", bf30, 257, tol=TOL_BF16)[1])
+    case(b3, f"jedi_30p fp32 S={c30.n_objects}", c30, 257,
+         block_s=c30.n_objects)
+    for b in (13, 257):
+        case(b3, "jedi_50p fp32", c50, b)
     case(b3, "jedi_tracks_128 fp32", c128, 13)
     check_fm_kernel(dev)
     check_decode_kernel(dev)
@@ -799,8 +891,10 @@ def main() -> int:
         check(engine.active_path(bucket) == forward,
               f"{label}: active path {engine.active_path(bucket)} at "
               f"bucket {bucket}")
-        check(launches >= n_batches + n_infer,
-              f"{label}: {k.name} launches {launches} >= served batches "
+        check(bucket == batch,
+              f"{label}: {batch}-event batches served in bucket {bucket}")
+        check(launches == n_batches + n_infer,
+              f"{label}: {k.name} launches {launches} == served batches "
               f"{n_batches + n_infer}")
         x = torch.from_numpy(requests[0]).to(dev)
         ref = ref_fn(ref_params, cfg, x)
@@ -856,7 +950,8 @@ def main() -> int:
     rows = []
     for k in kernels:
         t = timings[k.name]
-        ms = time_ms(t.run, t.reps)
+        windows = []
+        ms = time_ms(t.run, t.reps, windows)
         plain_ms = time_ms(t.plain, t.plain_reps)
         library_ms = time_ms(t.library, t.reps) if t.library else None
         t_ops = t.ops / PEAK_FP32_FLOPS * 1e3
@@ -864,7 +959,8 @@ def main() -> int:
         bound_ms = max(t_ops, t_bytes)
         lib = (f"; {t.library_name} {library_ms:.4f} ms" if t.library else
                "; no single PyTorch call computes this function")
-        print(f"  {k.name} at {t.label}: {ms:.4f} ms (plain version "
+        print(f"  {k.name} at {t.label}: {ms:.4f} ms (windows "
+              f"{windows[0][0]:.4f}-{windows[0][1]:.4f}; plain version "
               f"{plain_ms:.4f} ms{lib}); bound {bound_ms:.4f} ms "
               f"({t.ops / 1e9:.4f} GFLOP at 67 TFLOP/s fp32 vs "
               f"{t.nbytes / 1e6:.3f} MB at 3.35 TB/s)  [{card}]")
@@ -874,25 +970,42 @@ def main() -> int:
             "max_abs_err": t.max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "at": t.label, **t.extra,
+            "library_ms": library_ms, "ms_windows": windows[0],
+            "at": t.label, **t.extra,
             "card": card})
-    # B1's first design (the team layout, which a pinned sender tile
-    # selects) on the same inputs, for the record beside the new one
-    xk, bound, cfg = main_args[b1.name]
-    team_ms = time_ms(lambda: b1.jedi.run(xk, bound, cfg, cfg.n_objects),
-                      200)
-    rows[0]["team_design_ms"] = team_ms
-    print(f"  fused_jedinet_full team design (block_s={cfg.n_objects}) at "
-          f"{timings[b1.name].label}: {team_ms:.4f} ms  [{card}]")
+    # B1's and B3's first design (the team layout, which a pinned sender
+    # tile selects) on the same inputs, for the record beside the new one
+    for i, k in ((0, b1), (2, b3)):
+        xk, bound, cfg = main_args[k.name]
+        team_ms = time_ms(
+            lambda: k.jedi.run(xk, bound, cfg, cfg.n_objects), 200)
+        rows[i]["team_design_ms"] = team_ms
+        print(f"  {k.name} team design (block_s={cfg.n_objects}) at "
+              f"{timings[k.name].label}: {team_ms:.4f} ms  [{card}]")
+    # the device time per launch of B1-B3, where a loop of eager launches
+    # can measure the host's enqueue instead
+    for i, k, kernel in ((0, b1, "jedi_fused_full"), (1, b2, "jedi_linear"),
+                         (2, b3, "jedi_edge_block")):
+        t = timings[k.name]
+        prof = profiled_ms(t.run, kernel)
+        graph = graph_ms(t.run)
+        rows[i]["design"] = designs[k.name]["jedi_30p fp32 B=256"]
+        rows[i]["device_ms_profiler"] = prof
+        rows[i]["device_ms_graph"] = graph
+        shown = "no device time" if prof is None else f"{prof:.4f} ms"
+        print(f"  {k.name} device time per launch at {t.label}: "
+              f"torch.profiler {shown}, CUDA graph of 20 launches "
+              f"{graph:.4f} ms (eager loop {rows[i]['ms']:.4f} ms)  [{card}]")
     t5 = timings[b5.name].extra
     print(f"  flash_decode plan at {timings[b5.name].label}: "
           f"{t5['partitions']} partitions of {t5['partition_keys']} keys, "
           f"{t5['blocks']} blocks of {t5['warps_per_block']} warp(s), "
           f"{t5['stages']}-stage ring, "
           f"{t5['path']} path")
-    for label, design in b1_designs.items():
-        print(f"  fused_jedinet_full design at {label}: {design}")
-    rows[0]["designs"] = b1_designs
+    for i, k in enumerate((b1, b2, b3)):
+        for label, design in designs[k.name].items():
+            print(f"  {k.name} design at {label}: {design}")
+        rows[i]["designs"] = designs[k.name]
     # B2 at its widest shape, for the record beside its bound
     params = inet.init(0, c128, scale="lecun", device=dev)
     x = torch.from_numpy(make_jets(np.random.RandomState(1), batch,

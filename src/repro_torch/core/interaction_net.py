@@ -279,7 +279,7 @@ paths.register(paths.PathSpec(
     name="fused", forward=forward_fused, ref=forward_sr,
     fused_level="edge", cuda=True, tolerance=5e-4,
     bind_params=_bind_edge,
-    per_sample_bytes=lambda cfg, p: _edge_layout(cfg, p).per_event_bytes,
+    per_sample_bytes=lambda cfg, p: _edge_layout(cfg, p).batch_bytes,
     reserved_bytes=lambda cfg, p: _edge_layout(cfg, p).reserved_bytes,
     complexity="O(N^2)", fallback="sr",
     description="edge-block CUDA kernel: B-construct + f_R + MMM3 on-chip"))

@@ -15,8 +15,10 @@ degradation ladder::
 * ``int8_jedi_linear_full`` — the same kernel on int8 weights, upcast
   on-chip (scales on the fp32 sums), ``weight_bytes=1``.
 
-Each path's serving bucket ladder comes from B2's shared-memory layout
-(``kernels/jedi_linear/autotune.py``).
+Each path's serving bucket ladder comes from the launch B2 runs
+(``kernels/jedi_linear/autotune.py``): plain doublings up to
+``max_batch`` where its rows design walks the batch one event at a time,
+the team layout's tiles where that layout holds (jedi_tracks_128).
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ def _linear_layout(cfg, params):
 
 
 def _per_sample_bytes(cfg, params):
-    """Per-event shared-memory bytes of kernel B2's layout."""
-    return _linear_layout(cfg, params).per_event_bytes
+    """Shared memory one more event of a batch adds to a B2 block (none
+    for the rows design, which walks events)."""
+    return _linear_layout(cfg, params).batch_bytes
 
 
 def _reserved_bytes(cfg, params):

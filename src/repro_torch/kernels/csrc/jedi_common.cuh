@@ -2,6 +2,9 @@
 //   fused_jedinet_full.cu  (B1, whole JEDI-net, x -> logits)
 //   fused_jedinet_edge.cu  (B3, the edge block only, x -> Ebar)
 //   jedi_linear_full.cu    (B2, whole JEDI-linear, x -> logits)
+// This header holds their launch header and the first port's "team"
+// layout, which each keeps for the shapes its newer design does not take;
+// the newer designs' pieces are in jedi_warp.cuh.
 //
 // All three read one launch header (JEDI_HEADER_FIELDS, mirrored by
 // HEADER_FIELDS in kernels/fused_jedinet/full_kernel.py), keep every
@@ -384,17 +387,22 @@ inline cudaError_t read_args(Args& a, const void* x, const void* w,
   return cudaSuccess;
 }
 
-// Launch `kernel` over the batch (one block per `epb` events) on `stream`,
-// after opting in to its dynamic shared memory.  Returns the cudaError_t of
-// the launch (0 = launched).
+// Launch `kernel` over the batch (one block per `epb` events) on `stream`.
+// `opted` is the kernel's own record (a static of its launcher, never
+// shared with another kernel) of the dynamic shared memory it has opted in
+// to: the opt-in is asked for only when a launch needs more.  Returns the
+// cudaError_t of the launch (0 = launched).
 template <class Kernel>
-cudaError_t launch_blocks(Kernel kernel, const Args& a, void* stream) {
+cudaError_t launch_blocks(Kernel kernel, int& opted, const Args& a,
+                          void* stream) {
   if (a.batch == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(a.smem_words) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  const int smem = a.smem_words * static_cast<int>(sizeof(float));
+  if (smem > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
   const int grid = (a.batch + a.epb - 1) / a.epb;
   kernel<<<grid, a.threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

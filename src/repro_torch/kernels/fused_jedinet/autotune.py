@@ -4,12 +4,13 @@ The *team* layout below is shared by the edge block
 (``kernels/csrc/fused_jedinet_edge.cu``, B3, which stops at Ebar and has
 no f_O / phi_O regions) and by the whole network
 (``kernels/csrc/fused_jedinet_full.cu``, B1) where f_R is wider than a
-lane's registers or a sender tile is pinned; B1's own *warp* design
-(:func:`plan_full`, one thread per edge) has its plan at the end of this
-module.  The team layout gives one block ``events_per_block`` whole
-events.  Everything a block touches lives in its dynamic shared
-memory, in the regions below (fp32 words, every region a multiple of 4
-words so ``float4`` loads stay aligned):
+lane's registers or a sender tile is pinned; the *warp* design of both
+(:func:`plan_full` for B1, :func:`plan_edge` for B3: one thread per
+edge, a block walking events) has its plans at the end of this module.
+The team layout gives one block ``events_per_block`` whole events.
+Everything a block touches lives in its dynamic shared memory, in the
+regions below (fp32 words, every region a multiple of 4 words so
+``float4`` loads stay aligned):
 
 ===========  =============================  ============================
 region       words                           holds
@@ -91,6 +92,23 @@ def kernel_entries(n_features: int, fr_widths, fo_widths=(),
     return out
 
 
+def weight_words(entries) -> tuple[int, int]:
+    """Words of the ``w`` and ``b`` regions: every weight padded to
+    ``out_p`` columns, and the biases (rounded up to 4 words)."""
+    return (sum(e.in_dim * e.out_p for e in entries),
+            pad4(sum(e.out_p for e in entries if e.b_off >= 0)))
+
+
+def region_offsets(regions) -> tuple[dict, int]:
+    """Word offsets of ``[(name, words), ...]`` laid out in order, and
+    their total."""
+    offsets, off = {}, 0
+    for name, words in regions:
+        offsets[name] = off
+        off += words
+    return offsets, off
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """One launch of the kernel: its choice and its shared-memory map."""
@@ -106,11 +124,20 @@ class Layout:
     smem_words: int
     per_event_bytes: int    # bytes one more event adds
     reserved_bytes: int     # bytes before the first event
-    design: str = "team"    # B1: "team" or "warp" (see plan_full)
+    design: str = "team"    # "team", "warp" (B1, B3) or "rows" (B2)
 
     @property
     def smem_bytes(self) -> int:
         return 4 * self.smem_words
+
+    @property
+    def batch_bytes(self) -> int:
+        """Shared memory one more event of a batch adds to a block, which
+        sizes the serving buckets: the team layout's blocks hold
+        ``events_per_block`` events each, so ``per_event_bytes``; the
+        other designs' blocks walk the batch one event at a time, so
+        none (any batch, no tile)."""
+        return self.per_event_bytes if self.design == "team" else 0
 
 
 def team_size(mw: int) -> int:
@@ -132,19 +159,14 @@ def _layout(n_o, p, entries, d_e, d_o, epb, bs, ks, team, threads) -> Layout:
                  p + d_e if d_o else 0, d_o))
     slot_stride = 2 * mw + h1_p
     slot_stride += 1 - slot_stride % 2          # odd: conflict-free slots
-    w_words = sum(e.in_dim * e.out_p for e in entries)
-    b_words = pad4(sum(e.out_p for e in entries if e.b_off >= 0))
-    regions = [
+    w_words, b_words = weight_words(entries)
+    offsets, off = region_offsets([
         ("w", w_words), ("b", b_words),
         ("x", pad4(epb * n_o * p)), ("ebar", epb * n_o * de_p),
         ("part", epb * n_o * ks * de_p), ("us", epb * bs * h1_p),
         ("obuf", epb * n_o * do_p), ("osum", epb * do_p),
         ("slot", (threads // team) * slot_stride),
-    ]
-    offsets, off = {}, 0
-    for name, words in regions:
-        offsets[name] = off
-        off += words
+    ])
     per_event = n_o * p + n_o * de_p + n_o * ks * de_p + bs * h1_p \
         + n_o * do_p + do_p
     reserved = w_words + b_words + (threads // team) * slot_stride
@@ -202,13 +224,6 @@ def layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
                        mlp_widths(params["phi"]), block_s=block_s)
 
 
-def edge_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
-    """:func:`plan_launch` of the edge block for a config and its params
-    (only f_R's widths count)."""
-    return plan_launch(cfg.n_objects, cfg.n_features,
-                       mlp_widths(params["fr"]), block_s=block_s)
-
-
 # ---- B1's own plan ---------------------------------------------------------
 #: Register widths of B1's warp design (``RW`` in the source), the most
 #: threads a block of each may have (``warp_threads``) and the receivers a
@@ -233,40 +248,48 @@ def full_design(fr_widths, block_s: int | None = None) -> str:
     return "team"
 
 
-def _warp_layout(n_o, p, entries, d_e, d_o, fr_widths, fo_widths,
-                 phi_widths) -> Layout:
+def _warp_shape(n_o: int, fr_widths, readout: bool):
+    """(RW, receivers per compute warp, compute warps) of the warp design:
+    the narrowest register width that holds f_R, then as few groups of
+    RPL receivers per warp as the block's threads allow (less the
+    readout warp, where there is one)."""
     rw = min(w for w in WARP_REG_WIDTHS if w >= max(fr_widths))
     rpl = WARP_RPL[rw]
     units = -(-n_o // rpl)                        # groups of RPL receivers
-    max_warps = WARP_REG_WIDTHS[rw] // WARP - 1   # and the readout warp
+    max_warps = WARP_REG_WIDTHS[rw] // WARP - int(readout)
     per_warp = -(-units // max_warps)             # groups per warp
-    warps = -(-units // per_warp)
+    return rw, per_warp * rpl, -(-units // per_warp)
+
+
+def _fr_padded_words(fr_widths, rw: int) -> int:
+    """Words of f_R's layers after the first, zero-padded to rw x rw (the
+    last to rw x WARP_EDGE_REGS), then their biases padded the same
+    way (``pool`` of the warp designs)."""
+    n_rest = len(fr_widths) - 1
+    return 0 if n_rest == 0 else pad4((n_rest - 1) * (rw * rw + rw)
+                                      + rw * WARP_EDGE_REGS + WARP_EDGE_REGS)
+
+
+def _warp_layout(n_o, p, entries, d_e, d_o, fr_widths, fo_widths,
+                 phi_widths) -> Layout:
+    rw, ks, warps = _warp_shape(n_o, fr_widths, readout=True)
     h1_p, do_p = entries[0].out_p, pad4(d_o)
     ust = h1_p | 1                                # odd: conflict-free rows
     n_fr = len(fr_widths) + 1                     # w1r, w1s, the rest
     fst = max([pad4(p + d_e)] + [e.out_p for e in
                                  entries[n_fr:n_fr + len(fo_widths)]]) | 1
     half = pad4(max(d_o, *phi_widths))
-    w_words = sum(e.in_dim * e.out_p for e in entries)
-    b_words = pad4(sum(e.out_p for e in entries if e.b_off >= 0))
-    # f_R's layers after the first, padded to rw x rw (the last to rw x
-    # WARP_EDGE_REGS), then their biases
-    n_rest = len(fr_widths) - 1
-    pool = 0 if n_rest == 0 else (n_rest - 1) * (rw * rw + rw) \
-        + rw * WARP_EDGE_REGS + WARP_EDGE_REGS
-    regions = [("w", w_words), ("b", b_words), ("x", pad4(n_o * p)),
-               ("part", pad4(n_o * ust)), ("us", pad4(n_o * ust)),
-               ("ebar", pad4(2 * n_o * fst)), ("obuf", 2 * n_o * do_p),
-               ("slot", 2 * half), ("pool", pad4(pool))]
-    offsets, off = {}, 0
-    for name, words in regions:
-        offsets[name] = off
-        off += words
+    w_words, b_words = weight_words(entries)
+    offsets, off = region_offsets(
+        [("w", w_words), ("b", b_words),
+         ("x", pad4(n_o * p)), ("part", pad4(n_o * ust)),
+         ("us", pad4(n_o * ust)), ("ebar", pad4(2 * n_o * fst)),
+         ("obuf", 2 * n_o * do_p), ("slot", 2 * half),
+         ("pool", _fr_padded_words(fr_widths, rw))])
     per_event = pad4(n_o * p) + 2 * pad4(n_o * ust) + pad4(2 * n_o * fst) \
         + 2 * n_o * do_p
-    return Layout(1, WARP, per_warp * rpl, 1, (warps + 1) * WARP, rw,
-                  2 * half, offsets, off, 4 * per_event,
-                  4 * (off - per_event), design="warp")
+    return Layout(1, WARP, ks, 1, (warps + 1) * WARP, rw, 2 * half, offsets,
+                  off, 4 * per_event, 4 * (off - per_event), design="warp")
 
 
 def plan_full(n_objects: int, n_features: int, fr_widths, fo_widths,
@@ -299,4 +322,46 @@ def full_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
     the launch B1 runs."""
     return plan_full(cfg.n_objects, cfg.n_features, mlp_widths(params["fr"]),
                      mlp_widths(params["fo"]), mlp_widths(params["phi"]),
+                     block_s=block_s)
+
+
+def _edge_warp_layout(n_o, p, entries, d_e, fr_widths) -> Layout:
+    """B3's warp design: B1's without the readout warp, f_O and phi_O;
+    ``ebar`` holds one event's N_o x D_e sums in device memory's order."""
+    rw, ks, warps = _warp_shape(n_o, fr_widths, readout=False)
+    ust = entries[0].out_p | 1                    # odd: conflict-free rows
+    w_words, b_words = weight_words(entries)
+    per_event = pad4(n_o * p) + 2 * pad4(n_o * ust) + pad4(n_o * d_e)
+    offsets, off = region_offsets(
+        [("w", w_words), ("b", b_words), ("x", pad4(n_o * p)),
+         ("part", pad4(n_o * ust)), ("us", pad4(n_o * ust)),
+         ("ebar", pad4(n_o * d_e)),
+         ("pool", _fr_padded_words(fr_widths, rw))])
+    return Layout(1, WARP, ks, 1, warps * WARP, rw, 0, offsets, off,
+                  4 * per_event, 4 * (off - per_event), design="warp")
+
+
+def plan_edge(n_objects: int, n_features: int, fr_widths, *,
+              block_s: int | None = None,
+              budget_bytes: int = SMEM_BLOCK_BYTES) -> Layout:
+    """B3's launch, by B1's rule (:func:`full_design`): the warp design
+    (one thread per edge, every warp computing, a block walking events)
+    where f_R fits a lane's registers, no sender tile is pinned and its
+    shared memory fits, else the team layout of :func:`plan_launch`.
+    Layout fields of the warp design as in :func:`plan_full`, with
+    ``ks`` the receivers per warp and ``threads`` all compute."""
+    n_o, p = int(n_objects), int(n_features)
+    if full_design(fr_widths, block_s) == "warp":
+        lay = _edge_warp_layout(n_o, p, kernel_entries(p, fr_widths),
+                                fr_widths[-1], fr_widths)
+        if lay.smem_bytes <= budget_bytes:
+            return lay
+    return plan_launch(n_o, p, fr_widths, block_s=block_s,
+                       budget_bytes=budget_bytes)
+
+
+def edge_layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
+    """:func:`plan_edge` for a config and its params (only f_R's widths
+    count): the launch B3 runs."""
+    return plan_edge(cfg.n_objects, cfg.n_features, mlp_widths(params["fr"]),
                      block_s=block_s)

@@ -387,7 +387,9 @@ def launch(fn, symbol: str, x: torch.Tensor, weights: KernelWeights,
         meta_list = [vals[f] for f in HEADER_FIELDS] + ent
         meta = (ctypes.c_int * len(meta_list))(*meta_list)
         weights._meta_cache[key] = meta
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the current stream's raw handle: torch.cuda.current_stream() builds
+    # a Stream object per call, a large share of a launch's host time
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(x.data_ptr(), weights.wpack.data_ptr(), weights.bpack.data_ptr(),
              out.data_ptr(), meta, len(meta), scales, stream)
     if err != 0:

@@ -2,8 +2,9 @@
 
 Run on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
-Each kernel (B1 whole JEDI-net, B2 JEDI-linear, B3 edge block) is held
-against its plain version at 5e-4 of the result scale; B4 (FM
+Each kernel (B1 whole JEDI-net, B2 JEDI-linear, B3 edge block, in each
+of their designs) is held against its plain version at 5e-4 of the
+result scale; B4 (FM
 interaction) and B5 (flash decode) at 2e-4 of theirs, in fp32 and in
 bf16, where kernel and plain version read the same bf16 values and sum
 in fp32.  Two launches must be bitwise equal.  ``chip_smoke.py`` covers
@@ -84,19 +85,40 @@ def test_jedi_linear_kernel_matches_plain_version(cuda, batch, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_o,batch", [(30, 13), (30, 257), (50, 5)])
-def test_edge_block_kernel_matches_plain_version(cuda, n_o, batch):
+@pytest.mark.parametrize("n_o,batch,block_s", [(30, 13, None), (30, 257, None),
+                                               (30, 1, None), (50, 5, None),
+                                               (30, 13, 30)])
+def test_edge_block_kernel_matches_plain_version(cuda, n_o, batch, block_s):
+    """B3's warp design (jedi_30p, jedi_50p) and, with a pinned sender
+    tile, its team layout."""
     cfg = inet.JediNetConfig(n_objects=n_o)
     params = inet.init(0, cfg, scale="lecun", device=cuda)
     x = torch.from_numpy(make_jets(np.random.RandomState(1), batch, n_o)[0])
     x = x.to(cuda)
     bound = ops.bind_edge(params["fr"], cfg)
     before = EK.fused_edge_block_kernel_call.launches
-    out = ops.fused_edge_block(bound, cfg, x)
+    out = ops.fused_edge_block(bound, cfg, x, block_s=block_s)
     assert EK.fused_edge_block_kernel_call.launches == before + 1
     assert out.shape == (batch, n_o, cfg.d_e)
-    ref = EK.fused_edge_block_plain(x, bound.fr, activation="relu")
-    _check(out, ref, ops.fused_edge_block(bound, cfg, x))
+    ref = EK.fused_edge_block_plain(x, bound.fr, activation="relu",
+                                    block_s=block_s)
+    _check(out, ref, ops.fused_edge_block(bound, cfg, x, block_s=block_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [13, 257])
+def test_jedi_linear_rows_design_at_50p(cuda, batch):
+    """B2's rows design at jedi_50p (widths 50, 512 threads a block)."""
+    from repro_torch.configs import jedi_50p
+    cfg = jedi_50p.MODEL
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    x = torch.from_numpy(make_jets(np.random.RandomState(1), batch, 50)[0])
+    x = x.to(cuda)
+    bound = jl_ops.bind_linear(params, cfg)
+    out = jl_ops.jedi_linear_forward_full(bound, cfg, x)
+    ref = LK.jedi_linear_forward_full_plain(
+        x, bound.fr, bound.fo, bound.phi, activation="relu")
+    _check(out, ref, jl_ops.jedi_linear_forward_full(bound, cfg, x))
 
 
 @pytest.mark.cuda
