@@ -53,7 +53,31 @@ non-zero on any failure:
    graph of 20 launches (the eager loop can measure the host's enqueue
    at these sizes); B1's and B3's team designs beside their warp
    designs; the JEDI kernels' designs per case and B5's partitions,
-   stages and path.
+   stages and path;
+5. the trigger's serving front at jedi_30p fp32 through
+   ``ResilientEngine``, each run with the launch counts set to 0 just
+   before it and read just after (B1's and B2's launches here join
+   their main-path counts):
+   * the silent-seam drill, one engine per (path, seam):
+     ``scale_drift`` on ``int8_fused_full``, ``weight_corrupt`` and
+     ``stale_cache`` on ``fused_full``, ``weight_corrupt`` on
+     ``jedi_linear_full``; each detected at live batch 1, requalified
+     by batch 9, no loud counter, final state healthy, with its peak and
+     clean ``canary_dev`` printed;
+   * asynchronous shadows on the sentinel worker's own CUDA stream over
+     40 batches of 256 events: no disagreement, served logits bitwise
+     equal to an engine without the sentinel, and ``sentinel_verify_s``
+     of the post-hoc stream check over the stream's wall;
+   * ``ServingLoop`` (``DeadlineBatcher`` + ``run_plan``): 512 requests
+     of 1-300 events, every future within ``fused_full``'s tolerance of
+     ``engine.infer``, in-flight plans at most 4, at least one B1 launch
+     per plan; requests/s and completion p50 / p99; then a burst of six
+     full buckets in one submit against ``max_inflight=2``: dispatch
+     blocks on the oldest plan and the in-flight peak is exactly 2;
+   * ``ServingEngine.roofline([256])`` of ``fused_full`` and
+     ``jedi_linear_full`` at the H100's fp32 peak beside B1's and B2's
+     measured times, printed only: the modeled times and the canary bar
+     stay out of the kernels' JSON line, which holds measured numbers.
 
 Before the last line it prints one JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -76,11 +100,6 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-
-#: Published peaks of one H100 SXM (NVIDIA data sheet, dense): fp32 on
-#: the CUDA cores and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 #: fp32 and int8 paths: the repo's PathSpec.tolerance for the fused
 #: kernels, on results scaled to at least 1 (fp32's own rounding of a
@@ -645,6 +664,282 @@ def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
                "warps_per_block": lay.heads})
 
 
+#: The serving front's settings: EXPERIMENTS.md §Sentinel's drill
+#: (canary_every=3, promote_after=2, one-shot faults, sync shadows at the
+#: reference test's 1/4), and one engine per (path, seam).
+SILENT_DRILL = (("int8_fused_full", "scale_drift", 8.0),
+                ("fused_full", "weight_corrupt", 8.0),
+                ("fused_full", "stale_cache", 1.0),
+                ("jedi_linear_full", "weight_corrupt", 8.0))
+LOUD_COUNTERS = ("compile_failures", "dispatch_failures",
+                 "nonfinite_batches", "watchdog_timeouts")
+
+
+def serving_front(dev, card: str, kernels, b1: Kernel, b2: Kernel,
+                  rows: list) -> dict:
+    """Phase 5: the silent-seam drill, async shadows, ``ServingLoop`` and
+    the roofline, at jedi_30p full width fp32 through ``ResilientEngine``.
+    Returns each kernel's launches over the phase's runs; every run is
+    driven with the counts set to 0 just before it and read just after."""
+    import threading
+
+    from repro_torch.configs import jedi_30p
+    from repro_torch.core import interaction_net as inet
+    from repro_torch.core import paths
+    from repro_torch.data.jets import make_jets
+    from repro_torch.serving import (FaultInjector, ResilientEngine,
+                                     SentinelConfig, ServingEngine,
+                                     ServingLoop)
+
+    cfg, batch = jedi_30p.MODEL, 256
+    params = inet.init(0, cfg, scale="lecun", device=dev)
+    launches = {k.name: 0 for k in kernels}
+
+    def counted(run):
+        zero_counts(kernels)
+        out = run()
+        torch.cuda.synchronize()
+        for k in kernels:
+            launches[k.name] += k.counter.launches
+        return out
+
+    def loud(counters) -> dict:
+        return {k: counters[k] for k in LOUD_COUNTERS if k in counters}
+
+    # -- 1. the silent-seam drill, one engine per row ---------------------
+    print("== 5. serving front: silent-seam drill (sentinel)")
+    drill = {}
+    rng = np.random.RandomState(0)
+    for path, seam, factor in SILENT_DRILL:
+        wrapper = b2 if path.startswith("jedi_linear") else b1
+        inj = FaultInjector()
+        inj.arm(seam, path=path, times=1, factor=factor)
+        xs = [make_jets(rng, batch, cfg.n_objects)[0] for _ in range(12)]
+
+        def run():
+            eng = ResilientEngine(
+                params, cfg, forward=path, device=dev, max_batch=batch,
+                injector=inj, sentinel=SentinelConfig(
+                    canary_every=3, promote_after=2, shadow_rate=0.25,
+                    shadow_sync=True))
+            states, finite = [], True
+            for x in xs:
+                finite &= bool(np.isfinite(eng.infer(x)).all())
+                states.append(eng.health()["state"])
+            return eng, states, finite
+
+        before = launches[wrapper.name]
+        try:
+            eng, states, finite = counted(run)
+        except Exception as e:   # noqa: BLE001 — recorded as a failure
+            check(False, f"drill {path} {seam}: raised {e!r}")
+            continue
+        h = eng.health()
+        c = h["counters"]
+        dev_key = f"canary_dev_b{eng.bucket_for(batch)}"
+        detected = states.index("quarantined") + 1 \
+            if "quarantined" in states else None
+        requalified = states.index("healthy") + 1 \
+            if "healthy" in states else None
+        peak = eng.metrics.gauge_max(dev_key)
+        last = eng.metrics.gauge_value(dev_key)
+        bar = 8 * paths.get(path).tolerance
+        drill[f"{path}/{seam}"] = {
+            "detected_at": detected, "requalified_at": requalified,
+            "peak_canary_dev": peak, "clean_canary_dev": last,
+            "counters": c,
+            "launches": launches[wrapper.name] - before}
+        check(detected == 1 and requalified is not None
+              and requalified <= 9 and finite and not loud(c)
+              and h["state"] == "healthy" and inj.fired() == 1
+              and c.get("quarantines") == 1
+              and c.get("requalifications") == 1
+              and launches[wrapper.name] > before,
+              f"drill {path} {seam}: detected at batch {detected}, "
+              f"requalified at batch {requalified}, peak canary_dev {peak:.4e}"
+              f" (bar {bar:g}, clean canary_dev {last:.3e}), final state "
+              f"{h['state']}, loud counters {loud(c) or 'none'}, "
+              f"{launches[wrapper.name] - before} {wrapper.name} launches")
+
+    # -- 2. async shadows on the worker's own stream ----------------------
+    print("== 5. serving front: async shadows")
+    stream = [make_jets(rng, batch, cfg.n_objects)[0] for _ in range(40)]
+    plain = ResilientEngine(params, cfg, forward="fused_full", device=dev,
+                            max_batch=batch)
+    want = counted(lambda: [plain.infer(x) for x in stream])
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=dev,
+                          max_batch=batch,
+                          sentinel=SentinelConfig(shadow_rate=0.25,
+                                                  shadow_sync=False))
+    terminal = eng._engine_for(eng.sentinel.terminal_level)
+    seen = []
+    infer = terminal.infer
+
+    def spy(x, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream(dev)))
+        return infer(x, **kw)
+
+    terminal.infer = spy
+
+    def run():
+        got = [eng.infer(x) for x in stream]
+        eng.sentinel.drain()
+        return got
+
+    got = counted(run)
+    terminal.infer = infer
+    c = eng.metrics.counters
+    worker = eng.sentinel.shadow_stream
+    on_worker = bool(seen) and worker is not None \
+        and worker != torch.cuda.default_stream(dev) \
+        and all(n == "sentinel-shadow" and st == worker for n, st in seen)
+    bitwise = all(np.array_equal(a, b) for a, b in zip(got, want))
+    check(c.get("shadow_requests", 0) > 0
+          and not c.get("shadow_disagreements") and on_worker and bitwise
+          and not loud(c) and eng.health()["state"] == "healthy",
+          f"async shadows fused_full: {c.get('shadow_requests', 0)} shadow "
+          f"requests, {c.get('shadow_disagreements', 0)} disagreements, "
+          f"{len(seen)} shadow serves all on the worker's own stream: "
+          f"{on_worker}; 40 served batches bitwise equal to no sentinel: "
+          f"{bitwise}; shadow_dev_ewma "
+          f"{eng.metrics.gauge_value('shadow_dev_ewma_b256'):.3e}")
+    res = counted(lambda: eng.run_stream(stream, warmup=2))
+    eng.sentinel.close()
+    verify_s = eng.metrics.gauge_value("sentinel_verify_s")
+    shadows = {"shadow_requests": c.get("shadow_requests", 0),
+               "on_worker_stream": on_worker, "bitwise_equal": bitwise,
+               "stream_wall_s": res["wall_s"], "sentinel_verify_s": verify_s,
+               "verify_share": verify_s / res["wall_s"]}
+    print(f"  sentinel_verify_s {verify_s * 1e3:.3f} ms over the stream's "
+          f"wall {res['wall_s'] * 1e3:.3f} ms ({verify_s / res['wall_s']:.1%}"
+          f"; {len(stream)} batches of {batch}, canary_every 64, shadow 1/4)"
+          f"  [{card}]")
+
+    # -- 3. ServingLoop: DeadlineBatcher + run_plan through B1 ------------
+    print("== 5. serving front: ServingLoop")
+    sizes = np.random.RandomState(0).randint(1, 301, size=512)
+    events = make_jets(rng, int(sizes.sum()), cfg.n_objects)[0]
+    reqs = np.split(events, np.cumsum(sizes)[:-1])
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=dev,
+                          max_batch=batch)
+    eng.warm([batch])
+    loop = ServingLoop(eng, deadline_s=2e-3, max_inflight=4)
+    t_submit, t_done = {}, {}
+
+    def run():
+        pending = []
+
+        def reap():
+            now = time.perf_counter()
+            for f in [f for f in pending if f.done]:
+                t_done[f.rid] = now
+                pending.remove(f)
+
+        t0 = time.perf_counter()
+        futs = []
+        for x in reqs:
+            t_submit[len(futs)] = time.perf_counter()
+            fut = loop.submit(x)
+            futs.append(fut)
+            pending.append(fut)
+            loop.poll()
+            reap()
+        loop.drain()
+        reap()
+        return futs, time.perf_counter() - t0
+
+    futs, wall = counted(run)
+    plans = eng.metrics.counter("loop_plans")
+    b1_launches = b1.counter.launches
+    complete = all(f.done and not f.shed for f in futs)
+    gap = max(float(np.abs(f.result() - eng.infer(x)).max())
+              for f, x in zip(futs, reqs)) if complete else float("inf")
+    tol = paths.get("fused_full").tolerance
+    lat = sorted((t_done[i] - t_submit[i]) * 1e6 for i in t_done)
+    inflight = eng.metrics.gauge_max("inflight_plans")
+    c = eng.metrics.counters
+    check(complete and len(lat) == len(reqs) and gap <= tol
+          and inflight <= 4 and b1_launches >= plans and not loud(c)
+          and "shed_requests" not in c,
+          f"ServingLoop fused_full: {len(reqs)} requests of 1-300 events "
+          f"({int(sizes.sum())} events) in {plans} plans, all complete: "
+          f"{complete}; max |future - engine.infer| {gap:.3e} (tol {tol:g});"
+          f" inflight_plans peak {inflight:g} <= 4; {b1_launches} "
+          f"{b1.name} launches >= {plans} plans")
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    loop_rec = {"requests": len(reqs), "events": int(sizes.sum()),
+                "plans": plans, "wall_s": wall,
+                "requests_per_s": len(reqs) / wall,
+                "events_per_s": int(sizes.sum()) / wall,
+                "completion_p50_us": p50, "completion_p99_us": p99,
+                "max_abs_gap": gap, "inflight_plans_max": inflight,
+                "queue_depth_max": eng.metrics.gauge_max("queue_depth")}
+    print(f"  ServingLoop: {len(reqs) / wall:,.0f} requests/s, "
+          f"{int(sizes.sum()) / wall / 1e3:,.1f} K events/s; completion "
+          f"p50 {p50:.1f} us p99 {p99:.1f} us (deadline 2 ms, "
+          f"max_inflight 4, queue depth peak "
+          f"{loop_rec['queue_depth_max']:g})  [{card}]")
+
+    # a burst: one request of six full buckets, cut and dispatched in one
+    # submit against a cap of 2, so dispatch must block on the oldest plan
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=dev,
+                          max_batch=batch)
+    eng.warm([batch])
+    burst = ServingLoop(eng, deadline_s=2e-3, max_inflight=2)
+    x = make_jets(rng, 6 * batch, cfg.n_objects)[0]
+    realized, realize = [], burst._realize
+
+    def spy(entry):
+        realized.append((entry[0], burst.inflight))
+        realize(entry)
+
+    burst._realize = spy
+
+    def run():
+        fut = burst.submit(x)
+        burst.drain()
+        return fut
+
+    fut = counted(run)
+    bp = realized[:4]
+    peak = eng.metrics.gauge_max("inflight_plans")
+    plans = eng.metrics.counter("loop_plans")
+    gap = float(np.abs(fut.result() - eng.infer(x)).max()) \
+        if fut.done and not fut.shed else float("inf")
+    check(plans == 6 and bp == [(0, 2), (1, 2), (2, 2), (3, 2)]
+          and peak == 2 and gap <= tol and b1.counter.launches >= plans,
+          f"ServingLoop burst: {plans} plans in one submit at max_inflight "
+          f"2; dispatch blocked on plans (seq, in flight) {bp} "
+          f"(want the oldest first at the cap); inflight_plans peak "
+          f"{peak:g} == 2; max |future - engine.infer| {gap:.3e}")
+    loop_rec["burst"] = {"plans": plans, "inflight_plans_max": peak,
+                         "blocked_on": [q for q, _ in bp],
+                         "max_abs_gap": gap}
+
+    # -- 4. the H100 roofline beside the measured device time -------------
+    print("== 5. serving front: roofline (fp32, H100 datasheet peaks)")
+    roof = {}
+    for i, (path, k) in enumerate((("fused_full", b1),
+                                   ("jedi_linear_full", b2))):
+        m = ServingEngine(params, cfg, forward=path, device=dev,
+                          max_batch=batch).roofline([batch])[batch]
+        roof[path] = m
+        print(f"  {path} bucket {batch}: modeled {m['step_us']:.2f} us/step "
+              f"({m['bound']}-bound, {m['flops'] / 1e9:.4f} GFLOP at "
+              f"{m['peak_flops'] / 1e12:g} TFLOP/s, {m['hbm_bytes'] / 1e6:.3f}"
+              f" MB at 3.35 TB/s, level={m['fused_level']}); {k.name} "
+              f"measured {rows[i]['ms'] * 1e3:.2f} us eager, "
+              f"{rows[i]['device_ms_graph'] * 1e3:.2f} us device (CUDA graph)"
+              f"  [{card}]")
+    for path, m in roof.items():
+        check(np.isfinite(m["step_us"]) and m["step_us"] > 0
+              and m["peak_flops"] == 67e12,
+              f"roofline {path}: {m['step_us']:.3f} us at the fp32 peak")
+    return {"launches": launches, "drill": drill, "async_shadows": shadows,
+            "loop": loop_rec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -671,6 +966,8 @@ def main() -> int:
         from repro_torch.serving.trigger import make_stream
         from repro_torch.serving.resilient import ResilientEngine
         from repro_torch.nn.core import ACTIVATIONS
+        from repro_torch.core.codesign import H100_FP32_FLOPS as \
+            PEAK_FP32_FLOPS, H100_HBM_BPS as PEAK_HBM_BYTES
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1020,6 +1317,16 @@ def main() -> int:
     rows[1]["tracks_128"] = {"ms": ms128, "bound_ms": bound128}
     for key, (launches, snap) in serving.items():
         print(f"  served {key}: {launches} launches, {snap['kgps']:.1f} KGPS")
+
+    # ---- 5. the serving front ---------------------------------------------
+    front = serving_front(dev, card, kernels, b1, b2, rows)
+    for i, k in ((0, b1), (1, b2)):
+        rows[i]["launches_by_phase"] = {
+            "main_paths": rows[i]["launches"],
+            "serving_front": front["launches"][k.name]}
+        rows[i]["launches"] += front["launches"][k.name]
+    rows[0]["serving_front"] = {kk: v for kk, v in front.items()
+                                if kk != "launches"}
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB  [{card}]")
 

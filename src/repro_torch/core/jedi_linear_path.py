@@ -37,6 +37,13 @@ JEDI_LINEAR_TOLERANCE = 2e-4
 JEDI_LINEAR_FUSED_TOLERANCE = 5e-4
 
 
+def _jedi_flops(cfg, batch):
+    """PathSpec.flops_model hook -> :func:`codesign.jedi_linear_flops`
+    (imported lazily: codesign pulls in the DSE machinery)."""
+    from repro_torch.core.codesign import jedi_linear_flops
+    return jedi_linear_flops(cfg, batch)
+
+
 def _linear_layout(cfg, params):
     from repro_torch.kernels.jedi_linear.autotune import layout_for
     return layout_for(cfg, params)
@@ -77,6 +84,7 @@ def _bind_linear(params, cfg):
     fused_level="edge",
     tolerance=JEDI_LINEAR_TOLERANCE,
     complexity="O(N)",
+    flops_model=_jedi_flops,
     per_sample_bytes=_per_sample_bytes,
     reserved_bytes=_reserved_bytes,
     fallback="sr_split",
@@ -96,6 +104,7 @@ def forward_jedi_linear(params, cfg, x):
     tolerance=JEDI_LINEAR_FUSED_TOLERANCE,
     bind_params=_bind_linear,
     complexity="O(N)",
+    flops_model=_jedi_flops,
     per_sample_bytes=_per_sample_bytes,
     reserved_bytes=_reserved_bytes,
     # a failing kernel demotes to the same model in plain PyTorch first
@@ -121,6 +130,7 @@ def forward_jedi_linear_full(params, cfg, x):
     quantized=True,
     weight_bytes=1,                   # int8 in device memory, upcast on-chip
     complexity="O(N)",
+    flops_model=_jedi_flops,
     per_sample_bytes=_per_sample_bytes,
     reserved_bytes=_reserved_bytes,
     fallback="jedi_linear_full",

@@ -57,6 +57,7 @@ class PathSpec:
     weight_bytes: int | None = None         # weight precision in device memory
     per_sample_bytes: Callable | None = None   # (cfg, params) -> smem B/event
     reserved_bytes: Callable | None = None  # (cfg, params) -> smem B/block
+    flops_model: Callable | None = None     # (cfg, batch) -> FLOPs of one step
     fallback: str | None = None             # degrade-to path (fallback_chain)
     complexity: str = "O(N^2)"              # aggregation class
     description: str = ""
@@ -118,6 +119,26 @@ class PathSpec:
         return autotune.bucket_ladder(
             max_batch, self.bucket_bytes(cfg, params),
             reserved_bytes=self.reserved_smem_bytes(cfg, params), **kw)
+
+    def flops_for(self, cfg, batch: int) -> float:
+        """Modeled FLOPs of one batched forward step through this path:
+        the ``flops_model`` hook (O(N) paths plug in
+        ``codesign.jedi_linear_flops``), else the dense edge-grid model
+        (``codesign.H100Model.flops``)."""
+        if self.flops_model is not None:
+            return float(self.flops_model(cfg, batch))
+        from repro_torch.core import codesign
+        return float(codesign.H100Model.flops(cfg, batch))
+
+    def roofline_for(self, cfg, buckets, *, compute_bytes: int = 2,
+                     chips: int = 1) -> dict:
+        """H100Model roofline per bucket at this path's declared fusion
+        level, weight precision and FLOPs model."""
+        from repro_torch.core import codesign
+        return codesign.bucket_roofline(
+            cfg, buckets, level=self.fused_level,
+            compute_bytes=compute_bytes, chips=chips,
+            weight_bytes=self.weight_bytes, flops_fn=self.flops_model)
 
 
 # ---------------------------------------------------------------------------

@@ -287,6 +287,27 @@ class PendingResult:
         return self._out
 
 
+class PendingPlan:
+    """A dispatched :class:`~repro_torch.serving.batcher.BatchPlan` awaiting
+    realization: ``result()`` blocks and reassembles per-request logits."""
+
+    def __init__(self, pending: PendingResult, requests):
+        self._pending = pending
+        self._requests = requests
+
+    @property
+    def ready(self) -> bool:
+        return self._pending.ready
+
+    def result(self, *, timeout_s: float | None = None) -> dict:
+        logits = self._pending.result(timeout_s=timeout_s)
+        out: dict[int, list] = {}
+        for rid, start, stop in self._requests:
+            out.setdefault(rid, []).append(logits[start:stop])
+        return {rid: np.concatenate(parts, axis=0)
+                for rid, parts in out.items()}
+
+
 class ExecutionCore:
     """Bucketed, metered, fault-injectable execution over one workload."""
 
@@ -325,6 +346,13 @@ class ExecutionCore:
                     fn, path=self.workload.name, bucket=bucket)
             self._cache[key] = fn
         return fn
+
+    def evict(self, bucket) -> None:
+        """Drop one bucket's cached callable (and the packed weights it
+        holds) so the next dispatch rebuilds it from the source params.
+        The sentinel's quarantine calls this on a silent-corruption trip:
+        a poisoned entry is rebuilt, never re-trusted."""
+        self._cache.pop(self.workload.cache_key(bucket), None)
 
     @property
     def cache_size(self) -> int:
@@ -372,16 +400,27 @@ class ExecutionCore:
         return self.workload.pad(x, bucket)
 
     def infer(self, x, *, record: bool = True, sync: bool = True,
-              timeout_s: float | None = None):
+              timeout_s: float | None = None, bucket: int | None = None):
         """Serve ``x`` (n, ...): pad to bucket, dispatch, slice back.
 
         Requests larger than the top bucket are chunked through it, with
         at most :data:`MAX_INFLIGHT_CHUNKS` dispatches outstanding.
         ``sync=False`` returns a :class:`PendingResult` right after
         dispatch; metrics are recorded at realization.  ``timeout_s``
-        arms the realization watchdog (sync path).
+        arms the realization watchdog (sync path).  ``bucket`` pins the
+        bucket instead of resolving it from the row count: the sentinel's
+        canaries ride one bucket's cached callable with a small batch.
         """
         x = np.asarray(x)
+        pin = bucket
+        if pin is not None:
+            if pin not in self.bucket_sizes:
+                raise ValueError(
+                    f"pinned bucket {pin} not in ladder {self.bucket_sizes}")
+            if x.shape[0] > pin:
+                raise ValueError(
+                    f"request of {x.shape[0]} rows cannot ride pinned "
+                    f"bucket {pin}")
         top = self.bucket_sizes[-1]
         chunks = []
         for i in range(0, x.shape[0], top):
@@ -390,7 +429,7 @@ class ExecutionCore:
                 _synchronize(chunks[-MAX_INFLIGHT_CHUNKS][0])
             chunk = x[i:i + top]
             n_valid = chunk.shape[0]
-            bucket = self.bucket_for(n_valid)
+            bucket = self.bucket_for(n_valid) if pin is None else pin
             if self.injector is not None:
                 self.injector.check("dispatch", path=self.workload.name,
                                     bucket=bucket)
@@ -406,6 +445,13 @@ class ExecutionCore:
             chunks.append((out, n_valid, bucket, t0))
         pending = PendingResult(self, chunks, record=record)
         return pending.result(timeout_s=timeout_s) if sync else pending
+
+    def run_plan(self, plan, *, sync: bool = True):
+        """Execute one :class:`~repro_torch.serving.batcher.BatchPlan`;
+        returns ``{rid: (n_i, ...) outputs}`` reassembled per request.
+        ``sync=False`` returns a :class:`PendingPlan` right after dispatch."""
+        pending = PendingPlan(self.infer(plan.x, sync=False), plan.requests)
+        return pending.result() if sync else pending
 
     def run_stream(self, stream, *, warmup: int = 2) -> dict:
         """Pump a fixed-size batch stream through the double-buffered feed

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import paths as forward_paths
+from repro_torch.nn.core import as_dtype
 from repro_torch.serving import faults
 from repro_torch.serving.core import (  # noqa: F401  (re-exported)
     MAX_INFLIGHT_CHUNKS,
@@ -126,3 +127,12 @@ class ServingEngine(ExecutionCore):
     @property
     def forward(self) -> str:
         return self.workload.name
+
+    def roofline(self, buckets=None) -> dict:
+        """H100Model step-time context per bucket, at the spec's declared
+        fusion level and weight precision, billed at the peak of the
+        engine's compute dtype (float32 at the CUDA-core peak, bfloat16
+        at the tensor-core peak)."""
+        return self.spec.roofline_for(
+            self.cfg, buckets if buckets is not None else self.bucket_sizes,
+            compute_bytes=as_dtype(self.cfg.compute_dtype).itemsize)

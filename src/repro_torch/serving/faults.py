@@ -56,8 +56,8 @@ watchdog timeout.  The three **silent** seams below produce *finite,
 shaped, wrong* answers — the failure mode a Level-1 trigger fears most,
 because ``health()`` keeps reading ``healthy`` while physics is being
 misclassified.  They exist to prove that gap (no loud detector fires);
-the reference's sentinel closes it, and the port's sentinel is still
-to come.
+:mod:`repro_torch.serving.sentinel` closes it (golden canaries through
+the live kernel rung, shadows on the terminal rung, quarantine).
 All three fire at the compile-cache BUILD seam: corruption lands in the
 cached callable, persists across dispatches (like a corrupted weight in
 HBM or a poisoned cache entry), and is only cleared by rebuilding the

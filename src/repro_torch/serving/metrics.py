@@ -27,7 +27,7 @@ numbers the same way:
   (``<name>_max``), which is what backlog tests and capacity planning
   actually read.
 * counter and gauge mutation is LOCKED: the sentinel's shadow worker
-  (:mod:`repro.serving.sentinel`) increments from its own thread while
+  (:mod:`repro_torch.serving.sentinel`) increments from its own thread while
   the serve thread records batches — ``Counter.__iadd__`` is a
   read-modify-write, and a lost ``shadow_disagreements`` increment is a
   lost corruption signal.

@@ -19,16 +19,23 @@ forward path's fallback chain
   dispatches; a full queue realizes the oldest first.
 * **watchdog** — realization waits at most ``watchdog_s``; a timeout
   demotes the rung and re-serves on the fallback.
-* **health** — ``healthy / degraded / shedding / down`` with per-bucket
-  detail (:meth:`ResilientEngine.health`), from the shared metrics
-  counters.
+* **health** — ``healthy / degraded / shedding / quarantined / down``
+  with per-bucket detail (:meth:`ResilientEngine.health`), from the
+  shared metrics counters.
+* **deadline batches** — :meth:`ResilientEngine.run_plan` serves a
+  :class:`~repro_torch.serving.batcher.DeadlineBatcher` plan, shedding
+  the segments already past their deadline; ``sync=False`` returns a
+  :class:`ResilientPlan`, the live front-end's unit of in-flight work
+  (:mod:`repro_torch.serving.loop`).
+* **silent-corruption sentinel** (opt-in via ``sentinel=``) — golden
+  canaries, duty-cycled shadow re-execution on the terminal rung, and
+  canary-gated quarantine (:mod:`repro_torch.serving.sentinel`).
 
 A demotion hides a failing kernel from the caller by design, so every
 one is counted in ``health()["counters"]``; ``chip_smoke.py`` fails on
-any.  Not ported yet: the silent-corruption sentinel (``sentinel`` must
-be ``None``) and the deadline batcher's ``run_plan``.  Every transition
-is injectable (:mod:`repro_torch.serving.faults`), so the ladder is
-unit-testable on the CPU.
+any it did not inject.  Every transition is injectable
+(:mod:`repro_torch.serving.faults`), so the ladder is unit-testable on
+the CPU.
 """
 
 from __future__ import annotations
@@ -41,9 +48,13 @@ from repro_torch.core import paths as forward_paths
 from repro_torch.serving.engine import ServingEngine, WatchdogTimeout
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.sentinel import Sentinel, SentinelConfig
 
-#: Health states, worst wins.
-HEALTH_STATES = ("healthy", "degraded", "shedding", "down")
+#: Health states, worst wins: a bucket whose whole ladder failed is
+#: ``down``; a sentinel quarantine (silent corruption caught, rung
+#: awaiting canary requalification) beats recent shedding, which beats
+#: mere degradation.
+HEALTH_STATES = ("healthy", "degraded", "shedding", "quarantined", "down")
 
 
 class NonFiniteOutput(RuntimeError):
@@ -53,7 +64,8 @@ class NonFiniteOutput(RuntimeError):
 class _BucketState:
     """Ladder position + probe schedule for one bucket."""
 
-    __slots__ = ("level", "backoff_s", "next_probe", "demotions", "down")
+    __slots__ = ("level", "backoff_s", "next_probe", "demotions", "down",
+                 "quarantined", "q_level", "clean")
 
     def __init__(self, level: int, backoff_s: float):
         self.level = level           # active chain index (0 = primary)
@@ -61,6 +73,9 @@ class _BucketState:
         self.next_probe: float | None = None   # absolute clock time
         self.demotions = 0
         self.down = False            # last serve exhausted the ladder
+        self.quarantined = False     # sentinel caught silent corruption
+        self.q_level: int | None = None   # the quarantined rung
+        self.clean = 0               # consecutive clean canaries at q_level
 
 
 class ResilientPending:
@@ -93,6 +108,37 @@ class ResilientPending:
         return self._out
 
 
+class ResilientPlan:
+    """A dispatched :class:`~repro_torch.serving.batcher.BatchPlan` with
+    deadline shedding already applied at dispatch: ``result()``
+    reassembles ``{rid: logits | None}`` (``None`` marks a shed
+    request), recovering down the ladder like any other realization."""
+
+    def __init__(self, results: dict, keep, pending):
+        self._results = results          # pre-seeded with shed rids -> None
+        self._keep = keep                # ((rid, start, stop), ...) served
+        self._pending = pending          # ResilientPending | None
+
+    @property
+    def ready(self) -> bool:
+        return self._pending is None or self._pending.ready
+
+    def result(self) -> dict:
+        if self._pending is not None:
+            logits = self._pending.result()      # never raises
+            parts: dict[int, list] = {}
+            pos = 0
+            for rid, start, stop in self._keep:
+                n = stop - start
+                parts.setdefault(rid, []).append(logits[pos:pos + n])
+                pos += n
+            for rid, ps in parts.items():
+                self._results[rid] = np.concatenate(ps, axis=0)
+            self._pending = None
+            self._keep = ()
+        return self._results
+
+
 class ResilientEngine:
     """Never-raise serving over a forward path's degradation ladder."""
 
@@ -102,11 +148,7 @@ class ResilientEngine:
                  watchdog_s: float | None = 30.0, max_inflight: int = 8,
                  probe_initial_s: float = 0.25, probe_max_s: float = 60.0,
                  shed_window_s: float = 5.0, clock=time.monotonic,
-                 sentinel=None):
-        if sentinel is not None:
-            raise NotImplementedError(
-                "the silent-corruption sentinel is not ported yet; "
-                "pass sentinel=None")
+                 sentinel: SentinelConfig | bool | None = None):
         self.chain = forward_paths.fallback_chain(forward)
         self.cfg = cfg
         self.forward = forward
@@ -150,6 +192,10 @@ class ResilientEngine:
         self._base_level = base
         self.bucket_sizes = self._engines[base].bucket_sizes
         self._state: dict[int, _BucketState] = {}
+        if sentinel is True:
+            sentinel = SentinelConfig()
+        self.sentinel = (Sentinel(self, sentinel, clock=clock)
+                         if sentinel else None)
 
     # -- introspection -------------------------------------------------------
 
@@ -179,12 +225,19 @@ class ResilientEngine:
         """The chain rung currently serving ``bucket``."""
         return self.chain[self._bucket_state(bucket).level]
 
+    def roofline(self, buckets=None) -> dict:
+        """H100 roofline of the BASE rung (the intended serving path),
+        the number degraded operation is measured against."""
+        return self._engines[self._base_level].roofline(buckets)
+
     def health(self) -> dict:
         """The health state machine's current view: ``down`` (some
-        bucket's whole ladder failed on its last serve), ``shedding``
+        bucket's whole ladder failed on its last serve), ``quarantined``
+        (the sentinel caught silent corruption on some bucket's rung; it
+        re-promotes after ``promote_after`` clean canaries), ``shedding``
         (sheds within ``shed_window_s``), ``degraded`` (some bucket off
-        its primary rung), else ``healthy``; plus per-bucket detail and
-        the metrics counters and gauges."""
+        its primary rung), else ``healthy``; plus per-bucket detail, the
+        metrics counters and gauges, and the sentinel block."""
         now = self._clock()
         buckets = {}
         for b in sorted(self._state):
@@ -194,6 +247,10 @@ class ResilientEngine:
                 "level": st.level,
                 "demotions": st.demotions,
                 "down": st.down,
+                "quarantined": st.quarantined,
+                "quarantined_path": (None if st.q_level is None
+                                     else self.chain[st.q_level]),
+                "clean_canaries": st.clean,
                 "next_probe_in_s": (
                     None if st.next_probe is None
                     else max(0.0, st.next_probe - now)),
@@ -202,6 +259,8 @@ class ResilientEngine:
                   and now - self._last_shed < self.shed_window_s)
         if any(st.down for st in self._state.values()):
             state = "down"
+        elif any(st.quarantined for st in self._state.values()):
+            state = "quarantined"
         elif recent:
             state = "shedding"
         elif any(st.level > self._base_level
@@ -209,11 +268,14 @@ class ResilientEngine:
             state = "degraded"
         else:
             state = "healthy"
-        return {"state": state, "chain": list(self.chain),
-                "base_path": self.chain[self._base_level],
-                "buckets": buckets, "inflight": len(self._inflight),
-                "counters": self.metrics.counters,
-                "gauges": self.metrics.gauges}
+        report = {"state": state, "chain": list(self.chain),
+                  "base_path": self.chain[self._base_level],
+                  "buckets": buckets, "inflight": len(self._inflight),
+                  "counters": self.metrics.counters,
+                  "gauges": self.metrics.gauges}
+        if self.sentinel is not None:
+            report["sentinel"] = self.sentinel.detail()
+        return report
 
     # -- rung management -----------------------------------------------------
 
@@ -246,12 +308,54 @@ class ResilientEngine:
 
     def _start_level(self, st: _BucketState, now: float) -> int:
         """Where this serve enters the ladder: the active rung, or the
-        ladder top when the bucket's re-promotion probe is due."""
+        ladder top when the bucket's re-promotion probe is due.
+        Quarantined buckets never probe on live traffic — a rung that
+        served silent corruption can LOOK healthy to a probe, so
+        requalification is gated on clean canaries instead."""
+        if st.quarantined:
+            return st.level
         if (st.level > self._base_level and st.next_probe is not None
                 and now >= st.next_probe):
             self.metrics.incr("probes")
             return self._base_level
         return st.level
+
+    def _quarantine(self, bucket: int, level: int) -> None:
+        """Sentinel trip on ``level``: evict the bucket's cached callable
+        there (build-time corruption lives in it and its packed weights),
+        demote the bucket below the rung, and gate re-promotion on clean
+        canaries rather than live probes."""
+        st = self._bucket_state(bucket)
+        eng = self._engines.get(level)
+        if eng is not None:
+            eng.evict(bucket)
+        self.metrics.incr("sentinel_trips")
+        if not (st.quarantined and st.q_level == level):
+            st.quarantined = True
+            st.q_level = level
+            self.metrics.incr("quarantines")
+        st.clean = 0
+        demote_to = min(level + 1, len(self.chain) - 1)
+        if demote_to > st.level:
+            st.level = demote_to
+            st.demotions += 1
+            self.metrics.incr("demotions")
+        st.next_probe = None     # canary-gated, not probe-gated
+
+    def _requalify(self, bucket: int) -> None:
+        """``promote_after`` consecutive clean canaries at the quarantined
+        rung: lift the quarantine and re-promote to it."""
+        st = self._bucket_state(bucket)
+        lvl = st.q_level
+        st.quarantined = False
+        st.q_level = None
+        st.clean = 0
+        if lvl is not None and lvl < st.level:
+            st.level = lvl
+            self.metrics.incr("promotions")
+        st.backoff_s = self.probe_initial_s
+        st.next_probe = None
+        self.metrics.incr("requalifications")
 
     def _count_failure(self, exc: Exception) -> None:
         if isinstance(exc, InjectedFault) and exc.seam == "compile":
@@ -322,6 +426,10 @@ class ResilientEngine:
                 lvl += 1
                 continue
             self._rung_served(st, lvl)
+            if record and self.sentinel is not None:
+                # canaries ride the RUNG engines directly, so the
+                # sentinel never re-enters this ladder
+                self.sentinel.observe(x, out, bucket, lvl)
             return out
         st.down = True
         return self._last_resort(x.shape[0])
@@ -409,10 +517,33 @@ class ResilientEngine:
             out = self._serve_ladder(x, record=record, start=level + 1)
         else:
             self._rung_served(st, level)
+            if record and self.sentinel is not None:
+                self.sentinel.observe(x, out, bucket, level)
         if rp in self._inflight:
             self._inflight.remove(rp)
             self._gauge_inflight()
         return out
+
+    def run_plan(self, plan, *, sync: bool = True):
+        """Execute a :class:`~repro_torch.serving.batcher.BatchPlan`,
+        shedding segments whose deadline has already expired (they are
+        never dispatched); returns ``{rid: logits | None}`` — ``None``
+        marks a shed request.  ``sync=False`` returns a
+        :class:`ResilientPlan` right after the async dispatch."""
+        now = self._clock()
+        keep, results = [], {}
+        for i, (rid, start, stop) in enumerate(plan.requests):
+            t_deadline = plan.deadline_for(i)
+            if t_deadline is not None and now >= t_deadline:
+                self._shed(stop - start)
+                results[rid] = None
+            else:
+                keep.append((rid, start, stop))
+        if not keep:
+            return results if sync else ResilientPlan(results, (), None)
+        x = np.concatenate([plan.x[s:e] for _, s, e in keep], axis=0)
+        rp = ResilientPlan(results, tuple(keep), self.infer(x, sync=False))
+        return rp.result() if sync else rp
 
     def run_stream(self, stream, *, warmup: int = 2) -> dict:
         """The double-buffered fixed-size stream loop, ladder-protected: a
@@ -438,6 +569,9 @@ class ResilientEngine:
                 lvl += 1
                 continue
             self._rung_served(st, lvl)
+            if self.sentinel is not None:
+                # post-hoc: the hot stream loop itself stays untouched
+                self.sentinel.verify_stream(stream, bucket, lvl)
             return res
         st.down = True
         self.metrics.incr("failed_requests")

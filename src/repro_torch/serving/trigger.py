@@ -7,13 +7,18 @@ Port of ``repro.serving.trigger``.  The launch module is a thin shell
   generation stays off the timed path;
 * :func:`run_trigger_cli` — the whole serve flow: registry listing,
   fault drills through the guarded per-request path, the double-buffered
-  stream run, and the health report;
+  stream run with its H100 roofline line, and the health report;
 * :func:`print_health` — the health state machine's operator view.
 
 ``--device`` picks the card (``cuda``, the default) or ``cpu``; asking
-for ``cuda`` without a card raises.  The reference's roofline line waits
-for the port of ``core/codesign.py`` and is not printed; the sentinel
-flags wait for the port of ``serving/sentinel.py``.
+for ``cuda`` without a card raises.  ``--sentinel`` arms the
+silent-corruption sentinel with synchronous shadows.
+
+One departure from the reference's printout: the roofline line bills the
+step at the operand width of the engine's ``--compute-dtype`` (4 bytes
+for float32, 2 for bfloat16), so an fp32 run is held against the
+H100's fp32 peak, not its bf16 tensor-core peak, 15x higher.  The
+reference bills every run at 2 bytes, where the TPU has one peak.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from repro_torch.core.interaction_net import JediNetConfig, init
 from repro_torch.data.jets import make_jets
 from repro_torch.serving.faults import SILENT_SEAMS, FaultInjector
 from repro_torch.serving.resilient import ResilientEngine
-
+from repro_torch.serving.sentinel import SentinelConfig
 
 def make_stream(rng, n_batches: int, batch: int, n_objects: int,
                 n_features: int):
@@ -44,9 +49,18 @@ def print_health(engine) -> None:
     for bucket, st in h["buckets"].items():
         probe = ("-" if st["next_probe_in_s"] is None
                  else f"{st['next_probe_in_s']:.2f}s")
+        quarantine = ""
+        if st.get("quarantined"):
+            quarantine = (f" QUARANTINED[{st['quarantined_path']}] "
+                          f"clean_canaries={st['clean_canaries']}")
         print(f"  bucket {bucket:>5}: path={st['path']} level={st['level']} "
               f"demotions={st['demotions']} next_probe_in={probe}"
-              f"{' DOWN' if st['down'] else ''}")
+              f"{quarantine}{' DOWN' if st['down'] else ''}")
+    if h.get("sentinel"):
+        s = h["sentinel"]
+        print(f"  sentinel: canary_every={s['canary_every']} "
+              f"shadow_rate={s['shadow_rate']:g} "
+              f"promote_after={s['promote_after']}")
     if h["counters"]:
         print("  counters: " + " ".join(f"{k}={v}"
                                         for k, v in h["counters"].items()))
@@ -100,8 +114,17 @@ def build_trigger_cli(ap) -> None:
                          "output_nan, latency, stuck (MAGNITUDE = delay "
                          "seconds).  Silent seams: scale_drift, "
                          "weight_corrupt, stale_cache (MAGNITUDE = "
-                         "corruption factor) — undetected until the "
-                         "sentinel is ported")
+                         "corruption factor) — pair them with --sentinel "
+                         "or they serve wrong answers undetected")
+    ap.add_argument("--sentinel", action="store_true",
+                    help="arm the silent-corruption sentinel: golden "
+                         "canaries, terminal-rung shadow re-execution, "
+                         "canary-gated quarantine (see --health)")
+    ap.add_argument("--shadow-rate", type=float, default=1 / 16,
+                    help="sentinel shadow re-execution duty cycle "
+                         "(fraction of live requests; 0 disables shadows)")
+    ap.add_argument("--canary-every", type=int, default=16,
+                    help="sentinel canary cadence in requests per bucket")
     ap.add_argument("--watchdog-s", type=float, default=30.0,
                     help="stuck-dispatch watchdog budget")
     ap.add_argument("--deadline-ms", type=float, default=None,
@@ -125,11 +148,19 @@ def run_trigger_cli(args) -> None:
     if args.drill:
         injector = FaultInjector()
         parse_drills(args.drill, injector, args.forward)
+    sentinel = None
+    if getattr(args, "sentinel", False):
+        # sync shadows: the verdict (quarantines= in --health) must be
+        # complete when the run prints, not racing a worker
+        sentinel = SentinelConfig(canary_every=args.canary_every,
+                                  shadow_rate=args.shadow_rate,
+                                  shadow_sync=True)
     engine = ResilientEngine(params, cfg, forward=args.forward,
                              device=args.device,
                              max_batch=max(args.batch, 1),
                              injector=injector,
-                             watchdog_s=args.watchdog_s)
+                             watchdog_s=args.watchdog_s,
+                             sentinel=sentinel)
 
     rng = np.random.RandomState(args.seed)
     stream = make_stream(rng, args.batches, args.batch, args.n_objects,
@@ -168,6 +199,7 @@ def run_trigger_cli(args) -> None:
 
     snap = engine.metrics.snapshot()
     bucket = res["bucket"]
+    model = engine.roofline([bucket])[bucket]
     print(f"[trigger_serve] forward={args.forward} "
           f"n_objects={args.n_objects} batch={args.batch} bucket={bucket} "
           f"dtype={args.compute_dtype} shards={engine.n_shards} "
@@ -177,6 +209,11 @@ def run_trigger_cli(args) -> None:
     print(f"  latency    p50 {snap['p50_us']:8.1f} us   "
           f"p99 {snap['p99_us']:8.1f} us  per batch")
     print(f"  per-event  p50 {snap['per_event_p50_us']:8.3f} us")
+    print(f"  roofline   modeled {model['step_us']:.1f} us/step "
+          f"({model['bound']}-bound, {model['hbm_bytes'] / 1e6:.2f} MB HBM, "
+          f"level={model['fused_level']}, H100 peak "
+          f"{model['peak_flops'] / 1e12:g} TFLOP/s at "
+          f"{model['compute_bytes']} B/operand)")
     print(f"  serving    path={engine.active_path(bucket)} "
           f"(chain {'>'.join(engine.chain)})")
     if args.health:

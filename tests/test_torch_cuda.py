@@ -230,3 +230,134 @@ def test_fused_full_both_designs(cuda, n_o, block_s, design):
     ref = FK.fused_forward_full_plain(x, bound.fr, bound.fo, bound.phi,
                                       activation="relu", block_s=block_s)
     _check(out, ref, ops.fused_forward_full(bound, cfg, x, block_s=block_s))
+
+
+# -- the serving front on the card --------------------------------------------
+
+#: (path, seam, factor, the wrapper whose launches the path counts)
+SILENT_ON_CARD = [
+    ("int8_fused_full", "scale_drift", 8.0, FK.fused_forward_full_kernel_call),
+    ("fused_full", "weight_corrupt", 8.0, FK.fused_forward_full_kernel_call),
+    ("fused_full", "stale_cache", 1.0, FK.fused_forward_full_kernel_call),
+    ("jedi_linear_full", "weight_corrupt", 8.0, LK.jedi_linear_kernel_call),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,seam,factor,wrapper", SILENT_ON_CARD)
+def test_sentinel_catches_each_silent_seam_on_its_kernel(cuda, path, seam,
+                                                         factor, wrapper):
+    """EXPERIMENTS.md §Sentinel's settings at jedi_30p: detected at live
+    batch 1 through the kernel's cached callable and packed weights,
+    requalified at batch 9, no loud counter."""
+    from repro_torch.serving import (FaultInjector, ResilientEngine,
+                                     SentinelConfig)
+    cfg = inet.JediNetConfig()
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    inj = FaultInjector()
+    inj.arm(seam, path=path, times=1, factor=factor)
+    eng = ResilientEngine(params, cfg, forward=path, device=cuda,
+                          max_batch=64, injector=inj,
+                          sentinel=SentinelConfig(canary_every=3,
+                                                  promote_after=2,
+                                                  shadow_sync=True))
+    rng = np.random.RandomState(2)
+    before = wrapper.launches
+    states = []
+    for _ in range(12):
+        out = eng.infer(make_jets(rng, 61, 30)[0])
+        assert np.isfinite(out).all()
+        states.append(eng.health()["state"])
+    assert wrapper.launches > before
+    assert states[0] == "quarantined" and states.index("healthy") == 8
+    c = eng.metrics.counters
+    assert c["quarantines"] == 1 and c["requalifications"] == 1
+    for k in ("compile_failures", "dispatch_failures", "nonfinite_batches",
+              "watchdog_timeouts"):
+        assert k not in c
+    from repro_torch.core import paths
+    bar = 8 * paths.get(path).tolerance
+    dev = f"canary_dev_b{eng.bucket_for(61)}"
+    assert eng.metrics.gauge_max(dev) > bar >= eng.metrics.gauge_value(dev)
+
+
+@pytest.mark.cuda
+def test_async_shadows_run_on_the_worker_stream(cuda):
+    """Shadows on the worker's own CUDA stream: no disagreement, and the
+    served logits bitwise equal to a sentinel-free engine's."""
+    import threading
+
+    from repro_torch.serving import ResilientEngine, SentinelConfig
+    cfg = inet.JediNetConfig()
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=cuda,
+                          max_batch=64,
+                          sentinel=SentinelConfig(shadow_rate=0.25,
+                                                  shadow_sync=False))
+    plain = ResilientEngine(params, cfg, forward="fused_full", device=cuda,
+                            max_batch=64)
+    terminal = eng._engine_for(eng.sentinel.terminal_level)
+    seen = []
+    infer = terminal.infer
+
+    def spy(x, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream(cuda)))
+        return infer(x, **kw)
+    terminal.infer = spy
+    rng = np.random.RandomState(3)
+    try:
+        for _ in range(12):
+            x = make_jets(rng, 64, 30)[0]
+            assert np.array_equal(eng.infer(x), plain.infer(x))
+        eng.sentinel.drain()
+    finally:
+        eng.sentinel.close()
+    c = eng.metrics.counters
+    assert c["shadow_requests"] == 3 and "shadow_disagreements" not in c
+    stream = eng.sentinel.shadow_stream
+    assert stream is not None and stream != torch.cuda.default_stream(cuda)
+    assert seen and all(name == "sentinel-shadow" and s == stream
+                        for name, s in seen)
+
+
+@pytest.mark.cuda
+def test_serving_loop_through_b1_matches_direct_infer(cuda):
+    from repro_torch.serving import ResilientEngine, ServingLoop
+    cfg = inet.JediNetConfig()
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=cuda,
+                          max_batch=256)
+    loop = ServingLoop(eng, deadline_s=2e-3, max_inflight=4)
+    rng = np.random.RandomState(4)
+    xs = [make_jets(rng, int(n), 30)[0] for n in rng.randint(1, 301, 48)]
+    before = FK.fused_forward_full_kernel_call.launches
+    futs = []
+    for x in xs:
+        futs.append(loop.submit(x))
+        loop.poll()
+    loop.drain()
+    plans = eng.metrics.counter("loop_plans")
+    assert FK.fused_forward_full_kernel_call.launches - before >= plans
+    assert eng.metrics.gauge_max("inflight_plans") <= 4
+    for fut, x in zip(futs, xs):
+        got = fut.result()
+        assert float(np.abs(got - eng.infer(x)).max()) <= 5e-4
+    # a burst of six full buckets in one submit hits the cap of 2: the
+    # loop blocks on the oldest plan and the gauge's peak is the cap
+    eng = ResilientEngine(params, cfg, forward="fused_full", device=cuda,
+                          max_batch=256)
+    burst = ServingLoop(eng, deadline_s=2e-3, max_inflight=2)
+    realized, realize = [], burst._realize
+
+    def spy(entry):
+        realized.append((entry[0], burst.inflight))
+        realize(entry)
+
+    burst._realize = spy
+    x = make_jets(rng, 6 * 256, 30)[0]
+    fut = burst.submit(x)
+    assert realized[:4] == [(0, 2), (1, 2), (2, 2), (3, 2)]
+    assert eng.metrics.gauge_max("inflight_plans") == 2
+    burst.drain()
+    assert float(np.abs(fut.result() - eng.infer(x)).max()) <= 5e-4

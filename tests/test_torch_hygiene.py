@@ -46,7 +46,9 @@ def test_port_has_modules_to_check():
                      "serving/resilient.py", "launch/trigger_serve.py",
                      "models/__init__.py", "models/recsys.py",
                      "kernels/fm_interaction/kernel.py",
-                     "kernels/flash_decode/kernel.py"):
+                     "kernels/flash_decode/kernel.py",
+                     "serving/sentinel.py", "serving/loop.py",
+                     "serving/batcher.py", "core/codesign.py"):
         assert required in names
 
 

@@ -110,11 +110,6 @@ def test_engine_rejects_unsupported_dtype_and_unknown_path(small):
         ServingEngine(params, cfg, forward="fused_edge", device="cpu")
 
 
-def test_sentinel_is_not_ported_yet(small):
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        _engine(small, sentinel=True)
-
-
 # -- the degradation ladder ---------------------------------------------
 
 def test_compile_failure_demotes_and_fallback_serves(small):
