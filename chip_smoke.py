@@ -77,10 +77,39 @@ non-zero on any failure:
    * ``ServingEngine.roofline([256])`` of ``fused_full`` and
      ``jedi_linear_full`` at the H100's fp32 peak beside B1's and B2's
      measured times, printed only: the modeled times and the canary bar
-     stay out of the kernels' JSON line, which holds measured numbers.
+     stay out of the kernels' JSON line, which holds measured numbers;
+6. training on the card, with TF32 off (no kernel of the port runs in
+   a train step: forward and backward are plain PyTorch autograd, as the
+   reference trains through XLA, and the check asserts no launch):
+   * jedinet-30p at train_jets (B=4096), 300 AdamW steps at lr 2e-3
+     through ``repro_torch.launch.train.main`` with async checkpoints,
+     from the reference's initial weights at seed 0: ms per step of the
+     loop (CUDA events) and it/s, the first and last loss (falling,
+     finite) and the held-out accuracy on ``jet_batches(999)``'s 2048
+     events, at least half of the reference's gain over chance (its CPU
+     run at the same seed, steps and batch: 0.7803); then each layer of
+     a step (host data, H2D, forward+backward, optimizer update, the step
+     on a card batch, the checkpoint snapshot);
+   * a crash injected at step 30 (``--fail-at-step``) and the rerun
+     restoring step 25 and ending at the final checkpoint of step 60;
+   * the final checkpoint restored (params bitwise equal to the trained
+     ones) and served through B1: ``fused_full`` and
+     ``int8_fused_full`` on the held-out events, 8 batches of 256 each,
+     one launch per batch, no demotion, ``fused_full`` within 5e-4 of
+     ``forward_sr`` on the card (scaled to at least 1) with the same
+     argmax wherever the top two logits lie further apart than that;
+     these launches join B1's main-path count (``launches_by_phase``);
+   * ``fm`` at full width, ``train_batch`` (B=65,536), 16 AdamW steps at
+     lr 1e-2 through the recsys program: ms per step, peak device memory
+     above what was held before, the held-out loss below its ln 2 at
+     init, and each layer of a step;
+   * ``repro_torch.examples.codesign_search`` at its default 150 steps:
+     J1-baseline, Opt-Latn and Opt-Acc with their FPGA-model latency and
+     trained accuracy.
 
-Before the last line it prints one JSON object with each kernel's
-numbers; the last line is ``{"ok": true, "device": {...}}``.
+Before the last line it prints a ``training: {...}`` line with phase
+6's numbers and one JSON object with each kernel's numbers; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -89,6 +118,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -940,6 +970,312 @@ def serving_front(dev, card: str, kernels, b1: Kernel, b2: Kernel,
             "loop": loop_rec}
 
 
+#: jedinet-30p at train_jets (B=4096), 300 AdamW steps at lr 2e-3, seed 0:
+#: the JAX reference's held-out accuracy on the CPU (its train CLI, then
+#: ``repro_torch.examples.train_jedinet`` restoring its checkpoint and
+#: evaluating it).  The port starts from the same initial weights
+#: (``common/prng.py`` replays the reference's draw), but 300 AdamW steps
+#: carry summation-order differences far apart, so phase 6 asks the
+#: port's run on the card for at least half of the reference's gain over
+#: the 20% chance level.
+REF_ACC_30P_4096 = 0.7803
+CHANCE = 0.2
+ACC_MIN = CHANCE + 0.5 * (REF_ACC_30P_4096 - CHANCE)
+
+
+class _Tee:
+    """Writes to several text streams at once (stdout and a buffer)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _run_main(argv, *, injected: bool = False):
+    """``repro_torch.launch.train.main(argv)`` with its output echoed and
+    kept: (result, output).  With ``injected``, the run must raise the
+    injected failure, which is returned in place of the result."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        if not injected:
+            return train_cli.main(argv), buf.getvalue()
+        try:
+            train_cli.main(argv)
+        except RuntimeError as e:
+            return e, buf.getvalue()
+    return None, buf.getvalue()
+
+
+def _step_layers(card: str, label: str, step_fn, batches, opt, loss_fn,
+                 state, batch_np, cm_dir) -> dict:
+    """Time each layer of one train step at ``label``'s shape: host data
+    generation, the pinned H2D copy, forward+backward, the optimizer
+    update, the whole step on a batch already on the card, and the
+    checkpoint snapshot (host copy of the state) that ``save_async``
+    makes before it returns.  CUDA events; host clock for the host's
+    parts."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import to_device
+    from repro_torch.training import Optimizer, make_train_step
+    from repro_torch.common.tree import param_bytes, tree_leaves
+
+    dev = tree_leaves(state["params"])[0].device
+    t0 = time.perf_counter()
+    for _ in range(3):
+        next(batches)
+    data_ms = (time.perf_counter() - t0) / 3 * 1e3
+    h2d_ms = time_ms(lambda: to_device(batch_np, dev), 5)
+    batch = to_device(batch_np, dev)
+    grads_box = {}
+
+    def keep(grads, st, params, step):
+        grads_box["g"] = grads
+        return params, st, {}
+
+    fwd_bwd = make_train_step(loss_fn, Optimizer(lambda p: {}, keep))
+    fb_ms = time_ms(lambda: fwd_bwd({"params": state["params"], "opt": {},
+                                     "step": state["step"]}, batch), 3)
+    upd_ms = time_ms(lambda: opt.update(grads_box["g"], state["opt"],
+                                        state["params"], state["step"]), 3)
+    del grads_box["g"]
+    step_ms = time_ms(lambda: step_fn(state, batch), 3)
+    snap = {}
+    if cm_dir is not None:
+        cm = CheckpointManager(cm_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.save_async(0, state)
+        snap["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+        cm.wait()
+        snap["state_bytes"] = param_bytes(state)
+    out = {"data_ms": data_ms, "h2d_ms": h2d_ms, "fwd_bwd_ms": fb_ms,
+           "update_ms": upd_ms, "step_ms": step_ms, **snap}
+    print(f"  {label} layers: data {data_ms:.3f} ms (host), H2D "
+          f"{h2d_ms:.4f} ms, forward+backward {fb_ms:.4f} ms, optimizer "
+          f"update {upd_ms:.4f} ms, step on a card batch {step_ms:.4f} ms"
+          + (f", checkpoint snapshot {snap['snapshot_ms']:.3f} ms (host "
+             f"copy of {snap['state_bytes'] / 1e6:.3f} MB)" if snap else "")
+          + f"  [{card}]")
+    return out
+
+
+def training(dev, card: str, kernels, b1: Kernel) -> dict:
+    """Phase 6: the training stack on the card (plain PyTorch forward and
+    backward, as the reference trains through XLA), then the trained
+    JEDI-net served through B1.  Returns B1's launches in the serving
+    run (counts set to 0 just before it and read just after) and the
+    phase's numbers."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import fm, jedi_30p
+    from repro_torch.core import interaction_net as inet
+    from repro_torch.data.jets import jet_batches
+    from repro_torch.data.recsys_data import ctr_batches
+    from repro_torch.examples import codesign_search
+    from repro_torch.examples.train_jedinet import held_out_accuracy
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys
+    from repro_torch.serving.resilient import ResilientEngine
+    from repro_torch.training import init_state
+
+    out: dict = {}
+    cfg = jedi_30p.MODEL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # -- a. jedinet-30p at train_jets through the train CLI ------------
+        print("== 6a. train jedinet-30p at train_jets (B=4096) on the card")
+        b = 4096
+        ckpt = f"{tmp}/jedi"
+        zero_counts(kernels)
+        res, _ = _run_main([
+            "--arch", "jedinet-30p", "--device", str(dev), "--steps", "300",
+            "--batch", str(b), "--lr", "2e-3", "--ckpt-dir", ckpt,
+            "--ckpt-every", "100", "--log-every", "50"])
+        first, last = res["history"][0][1], res["history"][-1][1]
+        acc = held_out_accuracy(res["state"]["params"], cfg, dev)
+        check(all(np.isfinite(m["loss"]) for _, m in res["history"])
+              and last["loss"] < first["loss"],
+              f"jedinet-30p B={b}: loss {first['loss']:.4g} at step 0 -> "
+              f"{last['loss']:.4g} at step {res['history'][-1][0]}, finite")
+        check(acc >= ACC_MIN,
+              f"jedinet-30p B={b}: held-out accuracy {acc:.4f} (2048 events "
+              f"of jet_batches(999)) >= {ACC_MIN:.4f}, half the reference's "
+              f"gain over chance ({REF_ACC_30P_4096} on the CPU)")
+        check(sum(k.counter.launches for k in kernels) == 0,
+              "training launched no hand-written kernel (plain PyTorch "
+              "forward and backward, as the reference's XLA)")
+        print(f"  jedinet-30p B={b}: {res['ms_per_step']:.3f} ms/step over "
+              f"the loop ({1e3 / res['ms_per_step']:.2f} it/s, CUDA events, "
+              f"data from the prefetch thread)  [{card}]")
+        init_fn, step_fn, batches, opt = train_cli.make_program(
+            "jedinet-30p", b, 2e-3, dev)
+        layers = _step_layers(
+            card, f"jedinet-30p B={b}", step_fn, batches, opt,
+            lambda p, bb: inet.loss_fn(p, cfg, bb),
+            init_state(0, init_fn, opt),
+            next(jet_batches(5, b, cfg.n_objects)), f"{tmp}/snap")
+        out["jedinet_30p"] = {
+            "batch": b, "steps": res["steps"],
+            "loop_ms_per_step": res["ms_per_step"],
+            "first_loss": first["loss"], "last_loss": last["loss"],
+            "held_out_accuracy": acc, **layers}
+
+        # -- b. crash and restart ------------------------------------------
+        print("== 6b. crash and restart on the card")
+        argv = ["--arch", "jedinet-30p", "--device", str(dev), "--steps", "60",
+                "--batch", "1024", "--lr", "2e-3", "--ckpt-dir",
+                f"{tmp}/crash", "--ckpt-every", "25", "--log-every", "30"]
+        err, _ = _run_main(argv + ["--fail-at-step", "30"], injected=True)
+        check(err is not None and "injected failure" in str(err),
+              f"--fail-at-step 30 fails: {err}")
+        _, text = _run_main(argv)
+        check("restored checkpoint at step 25" in text
+              and "final checkpoint at step 60" in text,
+              "the rerun restores step 25 and ends with the final "
+              "checkpoint at step 60")
+
+        # -- c. the trained weights through B1 ----------------------------
+        print("== 6c. the trained jedinet-30p served through B1")
+        state, step = CheckpointManager(ckpt).restore(device=dev)
+        same = all(torch.equal(a, c) for a, c in zip(
+            tree_leaves(state["params"]), tree_leaves(res["state"]["params"])))
+        check(step == 300 and same,
+              f"final checkpoint restored at step {step}, params bitwise "
+              "equal to the trained ones")
+        held = next(jet_batches(999, 2048, cfg.n_objects, cfg.n_features))
+        xs = np.split(held["x"], 8)
+        y = held["y"]
+        with torch.no_grad():
+            ref = torch.cat([inet.forward_sr(state["params"], cfg,
+                                             torch.from_numpy(x).to(dev))
+                             for x in xs]).cpu().numpy()
+        ref_acc = float((ref.argmax(-1) == y).mean())
+        served, b1_launches = {}, 0
+        for path in ("fused_full", "int8_fused_full"):
+            engine = ResilientEngine(state["params"], cfg, forward=path,
+                                     device=dev, max_batch=256)
+            engine.infer(xs[0])                  # build the bucket
+            zero_counts(kernels)
+            logits = np.concatenate([engine.infer(x) for x in xs])
+            torch.cuda.synchronize()
+            launches = b1.counter.launches
+            b1_launches += launches
+            health = engine.health()
+            check(not health["counters"]
+                  and engine.active_path(256) == path
+                  and launches == len(xs),
+                  f"{path}: {launches} B1 launches for {len(xs)} batches of "
+                  f"256, active path {engine.active_path(256)}, counters "
+                  f"{health['counters'] or 'none'}")
+            served[path] = (logits, float((logits.argmax(-1) == y).mean()))
+        logits, acc_b1 = served["fused_full"]
+        scale = max(1.0, float(np.abs(ref).max()))
+        err_b1 = float(np.abs(logits - ref).max())
+        top2 = np.sort(ref, -1)[:, -2:]
+        near = top2[:, 1] - top2[:, 0] <= 2 * TOL_FP32 * scale
+        flips = logits.argmax(-1) != ref.argmax(-1)
+        check(err_b1 <= TOL_FP32 * scale,
+              f"fused_full vs forward_sr on the trained weights: max|err| "
+              f"{err_b1:.3e} ({err_b1 / scale:.2e} of scale, tol "
+              f"{TOL_FP32:g})")
+        check(not (flips & ~near).any(),
+              f"fused_full accuracy {acc_b1:.4f} vs forward_sr {ref_acc:.4f}"
+              f" on the held-out 2048 events: {int(flips.sum())} argmax "
+              f"flips, all among {int(near.sum())} events whose top two "
+              "logits lie within the tolerance")
+        acc_int8 = served["int8_fused_full"][1]
+        print(f"  int8_fused_full accuracy {acc_int8:.4f} beside fused_full "
+              f"{acc_b1:.4f} and forward_sr {ref_acc:.4f}  [{card}]")
+        out["jedinet_30p"].update(
+            served_accuracy={"fused_full": acc_b1,
+                             "int8_fused_full": acc_int8,
+                             "forward_sr": ref_acc},
+            served_max_abs_err=err_b1)
+        del state, res, served
+        torch.cuda.empty_cache()
+
+        # -- d. fm at full width --------------------------------------------
+        print("== 6d. train fm at full width (B=65,536) on the card")
+        b = fm.ARCH.shapes["train_batch"].dim("batch")
+        mcfg = fm.MODEL
+        held = train_cli.to_device(next(ctr_batches(1, b, mcfg.vocab_sizes)),
+                                   dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        zero_counts(kernels)
+        res, _ = _run_main([
+            "--arch", "fm", "--device", str(dev), "--steps", "16", "--batch",
+            str(b), "--lr", "1e-2", "--log-every", "5"])
+        peak = torch.cuda.max_memory_allocated() - held_before
+        state = res["state"]
+        init_loss = math.log(2.0)
+        with torch.no_grad():
+            held_loss = float(recsys.loss_fn(state["params"], mcfg, held)[0])
+        first, last = res["history"][0][1], res["history"][-1][1]
+        check(np.isfinite(held_loss) and held_loss < init_loss
+              and all(np.isfinite(m["loss"]) for _, m in res["history"]),
+              f"fm B={b}: held-out loss (ctr_batches(1)) {held_loss:.6f} < "
+              f"{init_loss:.6f} at init (logits ~0); train loss "
+              f"{first['loss']:.6f} -> {last['loss']:.6f}")
+        check(sum(k.counter.launches for k in kernels) == 0,
+              "fm training launched no hand-written kernel (use_kernel="
+              "False, as the reference trains)")
+        rows = recsys.padded_rows(mcfg)
+        print(f"  fm B={b}, {rows:,} rows of K={mcfg.embed_dim}: "
+              f"{res['ms_per_step']:.3f} ms/step over the loop "
+              f"({1e3 / res['ms_per_step']:.2f} it/s, CUDA events), peak "
+              f"device memory {peak / 2**30:.2f} GiB above the "
+              f"{held_before / 2**30:.2f} GiB held before the run  [{card}]")
+        _, step_fn, batches, opt = train_cli.make_program("fm", b, 1e-2, dev)
+        layers = _step_layers(
+            card, f"fm B={b}", step_fn, batches, opt,
+            lambda p, bb: recsys.loss_fn(p, mcfg, bb), state,
+            next(ctr_batches(5, b, mcfg.vocab_sizes)), None)
+        out["fm"] = {"batch": b, "rows": rows, "steps": res["steps"],
+                     "loop_ms_per_step": res["ms_per_step"],
+                     "peak_gib": peak / 2**30,
+                     "held_before_gib": held_before / 2**30,
+                     "held_out_loss": held_loss,
+                     "first_loss": first["loss"], "last_loss": last["loss"],
+                     **layers}
+        del state, res, held
+        torch.cuda.empty_cache()
+
+        # -- e. the co-design loop ------------------------------------------
+        print("== 6e. the co-design loop (examples.codesign_search, 150 "
+              "steps each)")
+        designs = codesign_search.main(["--device", str(dev)])
+        check(list(designs) == ["J1-baseline", "Opt-Latn", "Opt-Acc"]
+              and all(0.0 <= d["accuracy"] <= 1.0
+                      and np.isfinite(d["latency_us"])
+                      for d in designs.values()),
+              "three designs trained on the card: " + ", ".join(
+                  f"{n} {d['latency_us']:.2f} us {d['accuracy']:.4f}"
+                  for n, d in designs.items()))
+        out["codesign"] = {n: {"latency_us": d["latency_us"],
+                               "accuracy": d["accuracy"]}
+                           for n, d in designs.items()}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["b1_launches"] = b1_launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1329,6 +1665,12 @@ def main() -> int:
                                 if kk != "launches"}
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB  [{card}]")
+
+    # ---- 6. training --------------------------------------------------------
+    train = training(dev, card, kernels, b1)
+    rows[0]["launches_by_phase"]["training"] = train.pop("b1_launches")
+    rows[0]["launches"] += rows[0]["launches_by_phase"]["training"]
+    print("training: " + json.dumps(train))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

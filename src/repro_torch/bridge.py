@@ -13,14 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
+from repro_torch.common.tree import tree_map
 
 
 def params_from_jax(tree, *, device="cuda"):
@@ -29,10 +22,30 @@ def params_from_jax(tree, *, device="cuda"):
     ``{"layers": [...]}`` — as the same structure of torch tensors on
     ``device``, dtypes unchanged (fp32 stays fp32, int8 stays int8)."""
     dev = resolve_device(device)
-    return _map(tree, lambda leaf: torch.from_numpy(
-        np.array(np.asarray(leaf), copy=True)).to(dev))
+    return tree_map(lambda leaf: torch.from_numpy(
+        np.array(np.asarray(leaf), copy=True)).to(dev), tree)
 
 
 def params_to_numpy(params):
     """The inverse of :func:`params_from_jax`: torch leaves -> numpy."""
-    return _map(params, lambda t: t.detach().cpu().numpy())
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def state_from_jax(state, *, device="cuda"):
+    """A JAX train state ``{"params", "opt", "step"}`` (as made by
+    ``repro.training.init_state`` or restored by ``repro.checkpoint``) as
+    the port's: every leaf a tensor on ``device`` in its own dtype, the
+    optimizer's leaves wherever they sit (AdamW's ``m`` / ``v``,
+    Adafactor's ``{r, c}`` or ``{v}`` per param), and the step a 0-d
+    int32 tensor, so both trainers can start from one state."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"a train state has params, opt and step, not "
+                         f"{sorted(state)}")
+    out = params_from_jax(state, device=device)
+    out["step"] = out["step"].to(torch.int32).reshape(())
+    return out
+
+
+def state_to_numpy(state):
+    """The inverse of :func:`state_from_jax`: every leaf as numpy."""
+    return params_to_numpy(state)

@@ -1,9 +1,9 @@
 """Config schema of the recsys family (counterpart of ``repro.configs.base``).
 
 The port carries the pieces its slices use: :class:`RecsysConfig`,
-:class:`ShapeSpec`, :class:`ArchSpec` and :data:`RECSYS_SHAPES`, field
-for field as the reference declares them.  The LM and GNN configs come
-with their slices.
+:class:`ShapeSpec`, :class:`ArchSpec`, :data:`RECSYS_SHAPES` and
+:data:`JEDI_SHAPES`, field for field as the reference declares them.
+The LM and GNN configs come with their slices.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ class RecsysConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str        # recsys_train | recsys_serve | retrieval (this slice)
+    kind: str        # recsys_train | recsys_serve | retrieval | jedi_infer |
+    #                  jedi_train
     dims: dict
 
     def dim(self, k: str, default=None):
@@ -47,12 +48,17 @@ RECSYS_SHAPES = {
                                 dict(batch=1, n_candidates=1000000)),
 }
 
+JEDI_SHAPES = {
+    "stream_1k": ShapeSpec("stream_1k", "jedi_infer", dict(batch=1000)),
+    "train_jets": ShapeSpec("train_jets", "jedi_train", dict(batch=4096)),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                  # recsys (this slice)
-    model: Any                   # RecsysConfig
+    family: str                  # recsys | jedi
+    model: Any                   # RecsysConfig | JediNetConfig
     shapes: dict                 # name -> ShapeSpec
     source: str = ""             # citation tag
     notes: str = ""

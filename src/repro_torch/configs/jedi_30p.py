@@ -6,6 +6,7 @@ co-design search (repro/core/codesign.py) re-balances these sizes into the
 J3..J5 variants.
 """
 
+from repro_torch.configs.base import ArchSpec, JEDI_SHAPES
 from repro_torch.core.interaction_net import JediNetConfig
 
 MODEL = JediNetConfig(
@@ -17,4 +18,13 @@ MODEL = JediNetConfig(
     fr_hidden=(20, 20, 20),
     fo_hidden=(20, 20, 20),
     phi_hidden=(20, 20, 20),
+)
+
+ARCH = ArchSpec(
+    arch_id="jedinet-30p",
+    family="jedi",
+    model=MODEL,
+    shapes=dict(JEDI_SHAPES),
+    source="arXiv:1908.05318 + this paper Table 2",
+    notes="The paper's end-to-end application; 870 edges.",
 )

@@ -8,6 +8,7 @@ event.  In the port's CUDA kernel this is the widest case: f_R width
 smaller than N_o.
 """
 
+from repro_torch.configs.base import ArchSpec, JEDI_SHAPES
 from repro_torch.core.interaction_net import JediNetConfig
 
 MODEL = JediNetConfig(
@@ -19,4 +20,14 @@ MODEL = JediNetConfig(
     fr_hidden=(128, 128),
     fo_hidden=(64, 64),
     phi_hidden=(32, 32),
+)
+
+ARCH = ArchSpec(
+    arch_id="jedinet-tracks-128",
+    family="jedi",
+    model=MODEL,
+    shapes=dict(JEDI_SHAPES),
+    source="arXiv:2307.07289 (track-graph regime) + this repo",
+    notes="Large-graph variant: 16,256 edges; f_R width 128 runs the "
+          "team layouts of B1 (sender tile 48), B2 and B3.",
 )

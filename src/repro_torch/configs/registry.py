@@ -1,8 +1,10 @@
 """Architecture registry: ``get_arch("<id>")`` -> ArchSpec.
 
 Counterpart of ``repro.configs.registry`` over the archs whose port
-config exists (each module exports an ``ARCH``); the LM, GNN and
-JEDI-net ids join as their slices bring an ``ARCH``.
+config exists (each module exports an ``ARCH``); the LM and GNN ids join
+as their slices bring an ``ARCH``.  Until then :data:`PENDING_ARCHS`
+names each such id of the reference with its family, so an entry point
+can say which slice it waits for.
 """
 
 from __future__ import annotations
@@ -14,6 +16,23 @@ from repro_torch.configs.base import ArchSpec
 ARCH_MODULES = {
     # RecSys
     "fm": "repro_torch.configs.fm",
+    # the paper's own models
+    "jedinet-30p": "repro_torch.configs.jedi_30p",
+    "jedinet-50p": "repro_torch.configs.jedi_50p",
+    "jedinet-tracks-128": "repro_torch.configs.jedi_tracks_128",
+}
+
+#: the reference's archs that the port has no config for yet -> family
+PENDING_ARCHS = {
+    "arctic-480b": "lm",
+    "moonshot-v1-16b-a3b": "lm",
+    "h2o-danube-1.8b": "lm",
+    "minicpm-2b": "lm",
+    "phi3-medium-14b": "lm",
+    "gcn-cora": "gnn",
+    "pna": "gnn",
+    "meshgraphnet": "gnn",
+    "equiformer-v2": "gnn",
 }
 
 

@@ -24,10 +24,12 @@ import dataclasses
 import warnings
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.common import prng
 from repro_torch.core import adjacency, paths
 from repro_torch.nn import core as nn
 
@@ -57,20 +59,31 @@ class JediNetConfig:
 
 
 def init(seed, cfg: JediNetConfig, *, scale: str = "fan_in", device="cuda"):
-    """Random params from ``seed`` (an int or a ``torch.Generator``),
-    drawn on the CPU and moved to ``device``.  ``scale="lecun"`` keeps an
-    untrained net's activations O(1) through the N_o-way message sums.
-    The numbers differ from the JAX init of the same seed; parity tests
-    carry JAX params across with ``bridge.params_from_jax``."""
+    """Random params from ``seed``, drawn on the CPU and moved to
+    ``device``.  ``scale="lecun"`` keeps an untrained net's activations
+    O(1) through the N_o-way message sums.
+
+    ``seed`` is an int or a ``torch.Generator`` (torch's own draws, which
+    differ from the JAX init of the same seed; parity tests carry JAX
+    params across with ``bridge.params_from_jax``), or a key of
+    :mod:`repro_torch.common.prng`: ``init(prng.key(s), cfg)`` is the
+    reference's ``init(jax.random.PRNGKey(s), cfg)``, its key split in
+    the same way, each weight within a few ulps of the reference's.
+    """
     dev = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) \
-        else torch.Generator().manual_seed(int(seed))
+    if isinstance(seed, np.ndarray):                   # a prng key
+        kfr, kfo, kphi = prng.split(seed, 3)
+    else:
+        kfr = kfo = kphi = seed if isinstance(seed, torch.Generator) \
+            else torch.Generator().manual_seed(int(seed))
     kw = dict(scale=scale, device=dev)
     return {
-        "fr": nn.mlp_init(gen, 2 * cfg.n_features, cfg.fr_hidden, cfg.d_e, **kw),
-        "fo": nn.mlp_init(gen, cfg.n_features + cfg.d_e, cfg.fo_hidden,
+        "fr": nn.mlp_init(kfr, 2 * cfg.n_features, cfg.fr_hidden, cfg.d_e,
+                          **kw),
+        "fo": nn.mlp_init(kfo, cfg.n_features + cfg.d_e, cfg.fo_hidden,
                           cfg.d_o, **kw),
-        "phi": nn.mlp_init(gen, cfg.d_o, cfg.phi_hidden, cfg.n_targets, **kw),
+        "phi": nn.mlp_init(kphi, cfg.d_o, cfg.phi_hidden, cfg.n_targets,
+                           **kw),
     }
 
 

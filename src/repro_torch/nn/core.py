@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.common import prng
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -54,11 +55,21 @@ def sum_upcast(x: torch.Tensor, dim) -> torch.Tensor:
     return x.sum(dim)
 
 
-def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
+def _normal(source, shape) -> torch.Tensor:
+    """Standard normal fp32 draws on the CPU from a ``torch.Generator``, or
+    from a key of :mod:`repro_torch.common.prng` (the reference's
+    ``jax.random.normal``, each draw within 3 ulps)."""
+    if isinstance(source, torch.Generator):
+        return torch.randn(shape, generator=source, dtype=torch.float32)
+    return prng.normal(source, shape)
+
+
+def dense_init(generator, in_dim: int, out_dim: int, *,
                dtype=torch.float32, scale: str = "fan_in",
                use_bias: bool = True, device="cuda"):
-    """He/LeCun-style variance-scaling init, drawn on the CPU generator
-    and moved to ``device`` (the card by default; raises without one)."""
+    """He/LeCun-style variance-scaling init, drawn on the CPU from
+    ``generator`` (a ``torch.Generator`` or a ``prng`` key) and moved to
+    ``device`` (the card by default; raises without one)."""
     dev = resolve_device(device)
     if scale == "fan_in":
         std = math.sqrt(2.0 / in_dim)
@@ -68,8 +79,7 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
         std = math.sqrt(2.0 / (in_dim + out_dim))
     else:
         raise ValueError(f"unknown init scale {scale}")
-    w = torch.randn((in_dim, out_dim), generator=generator,
-                    dtype=torch.float32) * std
+    w = _normal(generator, (in_dim, out_dim)) * std
     p = {"w": w.to(dtype=as_dtype(dtype), device=dev)}
     if use_bias:
         p["b"] = torch.zeros((out_dim,), dtype=as_dtype(dtype), device=dev)
@@ -94,12 +104,17 @@ def mlp_dims(in_dim: int, hidden: Sequence[int], out_dim: int) -> list:
     return list(zip(dims[:-1], dims[1:]))
 
 
-def mlp_init(generator: torch.Generator, in_dim: int, hidden: Sequence[int],
+def mlp_init(generator, in_dim: int, hidden: Sequence[int],
              out_dim: int, *, dtype=torch.float32, scale: str = "fan_in",
              device="cuda"):
-    return {"layers": [dense_init(generator, din, dout, dtype=dtype,
-                                  scale=scale, device=device)
-                       for din, dout in mlp_dims(in_dim, hidden, out_dim)]}
+    """An MLP's layers from one ``torch.Generator`` drawn in turn, or from
+    a ``prng`` key split per layer as the reference splits its key."""
+    dims = mlp_dims(in_dim, hidden, out_dim)
+    sources = [generator] * len(dims) if isinstance(
+        generator, torch.Generator) else prng.split(generator, len(dims))
+    return {"layers": [dense_init(src, din, dout, dtype=dtype, scale=scale,
+                                  device=device)
+                       for src, (din, dout) in zip(sources, dims)]}
 
 
 def mlp_apply(p, x, *, activation: str = "relu",

@@ -361,3 +361,73 @@ def test_serving_loop_through_b1_matches_direct_infer(cuda):
     assert eng.metrics.gauge_max("inflight_plans") == 2
     burst.drain()
     assert float(np.abs(fut.result() - eng.infer(x)).max()) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three SGD steps of jedi_30p on the card against the same steps on
+    the CPU from the same params, at 1e-4 of each leaf's largest
+    magnitude (the two devices sum in another order; SGD carries that
+    difference linearly)."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.training import make_optimizer, make_train_step
+    from repro_torch.training.schedule import constant
+    cfg = inet.JediNetConfig()
+    params = inet.init(0, cfg, scale="lecun", device="cpu")
+    states = {}
+    for dev in ("cpu", cuda):
+        opt = make_optimizer("sgd", constant(1e-2))
+        # a copy on each device: the optimizer updates params in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = make_train_step(lambda q, b: inet.loss_fn(q, cfg, b), opt)
+        rng = np.random.RandomState(5)
+        for _ in range(3):
+            x, y = make_jets(rng, 256, 30)
+            state, m = step(state, {"x": torch.from_numpy(x).to(dev),
+                                    "y": torch.from_numpy(y).to(dev)})
+        assert m["loss"].device.type == torch.device(dev).type
+        states[torch.device(dev).type] = state
+    for a, b in zip(tree_leaves(states["cuda"]["params"]),
+                    tree_leaves(states["cpu"]["params"])):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_trained_weights_serve_through_b1(cuda):
+    """jedi_30p trained on the card for 40 AdamW steps, then served
+    through ``fused_full``: one B1 launch per batch, no demotion, logits
+    within 5e-4 of ``forward_sr`` (scaled to at least 1), and the same
+    argmax wherever the top two logits lie further apart than that."""
+    from repro_torch.serving import ResilientEngine
+    from repro_torch.training import init_state, make_optimizer, \
+        make_train_step
+    from repro_torch.training.schedule import warmup_cosine
+    cfg = inet.JediNetConfig()
+    opt = make_optimizer("adamw", warmup_cosine(2e-3, 10, 100))
+    state = init_state(0, lambda s: inet.init(s, cfg, device=cuda), opt)
+    step = make_train_step(lambda q, b: inet.loss_fn(q, cfg, b), opt)
+    rng = np.random.RandomState(6)
+    for _ in range(40):
+        x, y = make_jets(rng, 256, 30)
+        state, m = step(state, {"x": torch.from_numpy(x).to(cuda),
+                                "y": torch.from_numpy(y).to(cuda)})
+    assert bool(torch.isfinite(m["loss"]))
+    eng = ResilientEngine(state["params"], cfg, forward="fused_full",
+                          device=cuda, max_batch=256)
+    xs = [make_jets(rng, 256, 30)[0] for _ in range(4)]
+    before = FK.fused_forward_full_kernel_call.launches
+    served = [eng.infer(x) for x in xs]
+    assert FK.fused_forward_full_kernel_call.launches - before == len(xs)
+    assert not eng.health()["counters"]
+    for x, got in zip(xs, served):
+        with torch.no_grad():
+            ref = inet.forward_sr(state["params"], cfg,
+                                  torch.from_numpy(x).to(cuda)).cpu().numpy()
+        scale = max(1.0, float(np.abs(ref).max()))
+        assert float(np.abs(got - ref).max()) <= 5e-4 * scale
+        top2 = np.sort(ref, -1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * 5e-4 * scale
+        assert (got.argmax(-1) == ref.argmax(-1))[clear].all()

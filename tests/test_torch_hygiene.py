@@ -48,7 +48,13 @@ def test_port_has_modules_to_check():
                      "kernels/fm_interaction/kernel.py",
                      "kernels/flash_decode/kernel.py",
                      "serving/sentinel.py", "serving/loop.py",
-                     "serving/batcher.py", "core/codesign.py"):
+                     "serving/batcher.py", "core/codesign.py",
+                     "common/tree.py", "training/optimizer.py",
+                     "training/schedule.py", "training/trainer.py",
+                     "training/grad_compression.py",
+                     "checkpoint/checkpoint.py", "launch/train.py",
+                     "examples/train_jedinet.py",
+                     "examples/codesign_search.py"):
         assert required in names
 
 
