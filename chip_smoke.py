@@ -24,7 +24,9 @@ non-zero on any failure:
      G=4, a sliding window, a bf16 cache, S not a multiple of the tile,
      a row with no valid key (with one partition and with many), and
      h2o-danube-1.8b's decode_32k shape at B=1 and B=2, where many
-     sequence partitions combine;
+     sequence partitions combine, and the bf16 shapes phase 7 adds:
+     minicpm-2b's MHA (G=1, D=64; B=16, S=1,024) and the serve CLI's
+     (B=4, S=128);
 3. the main paths, each with all launch counts set to 0 just before it
    is driven and read just after:
    * ``fused_full`` and ``int8_fused_full`` (B1), ``jedi_linear_full``
@@ -53,7 +55,8 @@ non-zero on any failure:
    graph of 20 launches (the eager loop can measure the host's enqueue
    at these sizes); B1's and B3's team designs beside their warp
    designs; the JEDI kernels' designs per case and B5's partitions,
-   stages and path;
+   stages and path; B5 also at the LM path's own decode shape (B=128,
+   T=4,096, bf16, window 4,096) beside SDPA, with the plan it picks;
 5. the trigger's serving front at jedi_30p fp32 through
    ``ResilientEngine``, each run with the launch counts set to 0 just
    before it and read just after (B1's and B2's launches here join
@@ -107,9 +110,44 @@ non-zero on any failure:
      J1-baseline, Opt-Latn and Opt-Acc with their FPGA-model latency and
      trained accuracy.
 
+7. dense-LM serving at full width through ``LMEngine``, bf16 compute
+   on fp32 params drawn on the card, the decode step's attention one B5
+   launch per layer (each run with the launch counts set to 0 after its
+   warm-up and read after it; its launches join B5's count by run):
+   * 7a, h2o-danube-1.8b (24 layers, d_model 2560, 32 / 8 heads, D=80,
+     window 4,096) with 128 slots and a 4,096-slot cache: 192 requests
+     of 64-2,048 prompt tokens and 32 new tokens each; all complete,
+     none shed, one prefill build per rung, B5 launches = 24 x decode
+     steps, finite logits; prefill ms per rung, decode ms per step p50 /
+     p99, tokens/s, device memory, the step's byte bound
+     (``H100Model.lm_decode_step``) and p50 over it, and one step's
+     device busy share and B5 share from ``torch.profiler``; then one
+     step on the live cache with each B5 launch held against B5's plain
+     version on the same inputs (``HeldB5``, at 2e-4 of scale);
+   * 7b, decode against prefill: 4 prompts of 200-1,000 tokens, 24 new,
+     each decode step's logits (B5) against a teacher-forced
+     ``forward`` (plain attention) over the same tokens, in fp32
+     (within 2e-3 of scale) and in bf16 (within ``TOL_LM_BF16``, the
+     same argmax wherever the top two lie further apart than it), with
+     every B5 launch of both runs held against its plain version at
+     2e-4 of scale, the sharp check of the bf16 path;
+   * 7c, past the window: 2 prompts of 4,000 tokens and 160 new, so the
+     ring wraps; the same comparison, in fp32 and bf16;
+   * 7d, minicpm-2b (40 layers, MHA, so G=1 and D=64: B5's CUDA-core
+     path; tied head, vocab padded to 122,880) with 16 slots: 32
+     requests of 64-512 tokens, 16 new; all complete, B5 launches = 40 x
+     steps, finite logits, tokens/s, and one step on the live cache with
+     its 40 B5 launches (bf16, G=1, D=64) held against the plain
+     version.  phi3-medium-14b's fp32 params and their bf16 copy do not
+     fit the card, so it does not run;
+   * 7e, ``python -m repro_torch.launch.serve --arch h2o-danube-1.8b``
+     with its defaults (8 requests), on the card: B5 launches = 24 x
+     steps, each held against its plain version.
+
 Before the last line it prints a ``training: {...}`` line with phase
-6's numbers and one JSON object with each kernel's numbers; the last
-line is ``{"ok": true, "device": {...}}``.
+6's numbers, an ``lm: {...}`` line with phase 7's and one JSON object
+with each kernel's numbers; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -484,6 +522,10 @@ def check_decode_kernel(dev) -> None:
         ("row 0 with no valid key", (3, 8, 2, 80, 200), 64, None, f32, None),
         ("bf16 D=33 (plain staging)", (2, 8, 2, 33, 100), 16, None, bf16,
          None),
+        ("bf16 MHA G=1 D=64 (minicpm-2b, 7d)", (16, 36, 36, 64, 1024), None,
+         None, bf16, None),
+        ("bf16 D=80 G=4 B=4 S=128 (the serve CLI, 7e)", (4, 32, 8, 80, 128),
+         None, None, bf16, None),
         ("danube decode_32k B=1", (1, 32, 8, 80, 32768), None, None, bf16,
          None),
         ("danube decode_32k B=2", (2, 32, 8, 80, 32768), None, None, bf16,
@@ -691,6 +733,64 @@ def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
                "sdpa_max_abs_diff": sdpa_diff, "partitions": lay.n_parts,
                "partition_keys": lay.part_len, "stages": lay.stages,
                "path": lay.path, "blocks": lay.blocks,
+               "warps_per_block": lay.heads})
+
+
+#: h2o-danube-1.8b's decode step as phase 7 serves it: 128 slots (the
+#: LM family's decode_32k batch) over its rolling cache of T = 4,096
+#: slots (the sliding window), bf16.
+DANUBE_LM_DECODE = dict(b=128, s=4096, h=32, hkv=8, d=80)
+
+
+def lm_decode_timing(dev) -> Timing:
+    """B5 at the LM path's own decode shape (phase 4): every slot full, the
+    window of 4,096 positions; against its plain version, with SDPA as the
+    library call.  Its launches are filled in from phase 7."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as FDK
+
+    b, s, h, hkv, d = (DANUBE_LM_DECODE[n] for n in ("b", "s", "h", "hkv",
+                                                      "d"))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, _, kv_pos = decode_inputs(gen, dev, b, h, hkv, d, s,
+                                       torch.bfloat16, causal=False,
+                                       q_pos=[0] * b)
+    q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    qg = scaled_groups(q, hkv)
+    out = FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos, window=s)
+    ref = FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=s)
+    err, rel = err_of(out, ref)
+    lay = FDK.plan(b, hkv, h // hkv, d, s, k.element_size())
+    label = (f"h2o-danube-1.8b LM decode B={b} S={s} H={h} Hkv={hkv} D={d} "
+             "bf16 window 4096")
+    check(bool(torch.isfinite(out).all()) and rel <= TOL_FM_DECODE,
+          f"flash_decode at {label}: vs plain max|err| {err:.3e} ({rel:.2e} "
+          f"of scale, tol {TOL_FM_DECODE:g}); plan: {lay.n_parts} partitions"
+          f" of {lay.part_len} keys, {lay.blocks} blocks of {lay.heads} "
+          f"warp(s), {lay.stages}-stage ring, {lay.path} path")
+    del ref
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    ok = (kv_pos >= 0) & (kv_pos <= q_pos[:, None]) \
+        & ((q_pos[:, None] - kv_pos) < s)
+    mask = ok[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    ops_, nbytes = decode_work(b, s, h, hkv, d, k.element_size())
+    return Timing(
+        label, lambda: FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos,
+                                                    window=s),
+        lambda: FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=s),
+        ops_, nbytes, err, 0, reps=50, plain_reps=5, library=sdpa,
+        library_name="scaled_dot_product_attention (bf16, enable_gqa, "
+                     "boolean mask)",
+        extra={"main_path": "models.transformer.decode_step (phase 7)",
+               "partitions": lay.n_parts, "partition_keys": lay.part_len,
+               "stages": lay.stages, "path": lay.path, "blocks": lay.blocks,
                "warps_per_block": lay.heads})
 
 
@@ -1276,6 +1376,530 @@ def training(dev, card: str, kernels, b1: Kernel) -> dict:
     return out
 
 
+def time_row(k: Kernel, t: Timing, card: str, peak_flops: float,
+             peak_bytes: float) -> dict:
+    """Phase 4's numbers of one timing case, printed and returned as a row
+    of the kernels' JSON line: the kernel's, its plain version's and the
+    library call's times (CUDA events), and the bound (the larger of the
+    operations at the fp32 peak and the bytes at the HBM rate)."""
+    windows = []
+    ms = time_ms(t.run, t.reps, windows)
+    plain_ms = time_ms(t.plain, t.plain_reps)
+    library_ms = time_ms(t.library, t.reps) if t.library else None
+    t_ops = t.ops / peak_flops * 1e3
+    t_bytes = t.nbytes / peak_bytes * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    lib = (f"; {t.library_name} {library_ms:.4f} ms" if t.library else
+           "; no single PyTorch call computes this function")
+    print(f"  {k.name} at {t.label}: {ms:.4f} ms (windows "
+          f"{windows[0][0]:.4f}-{windows[0][1]:.4f}; plain version "
+          f"{plain_ms:.4f} ms{lib}); bound {bound_ms:.4f} ms "
+          f"({t.ops / 1e9:.4f} GFLOP at 67 TFLOP/s fp32 vs "
+          f"{t.nbytes / 1e6:.3f} MB at 3.35 TB/s)  [{card}]")
+    return {
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": t.launches,
+        "max_abs_err": t.max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms, "ms_windows": windows[0],
+        "at": t.label, **t.extra, "card": card}
+
+
+# ---- phase 7: dense LM serving ------------------------------------------------
+
+#: 7b / 7c, fp32: decode through B5 against a teacher-forced ``forward``
+#: (plain attention) over the same tokens, at the reference's own
+#: decode-vs-prefill bar (tests/test_transformer.py), on logits scaled to
+#: max(1, max |logit|).
+TOL_LM_FP32 = 2e-3
+#: bf16, the same comparison.  The two runs compute one function with
+#: other roundings: the decode step's products run at M = 2-128 rows and
+#: the forward's at M = S (cuBLAS sums in another order), and B5 keeps p
+#: at fp32 accuracy where the plain attention casts p to bf16.  Once one
+#: value lands on the other side of a bf16 rounding, the two runs round
+#: independently from there on.  Each of the ~11 roundings a layer takes
+#: on the residual stream's way (q, k, v, the attention output, wo, two
+#: residual adds, gate, up, their product, down) moves its value by up
+#: to 2^-9 of it, 2^-9 / sqrt(3) rms; over 24 layers and two runs the
+#: final hidden state differs by sqrt(2 * 11 * 24) * 2^-9 / sqrt(3) =
+#: 2.6e-2 rms of its size.  A logit, a sum over d_model such terms with
+#: random head weights, moves by that fraction of its own spread; the
+#: largest move over the ~3M logits compared (4 prompts x 23 steps x
+#: 32,000) lies ~5 spreads out and max |logit| ~4.3 spreads out, so the
+#: gap is ~3e-2 of scale, and one bf16 ulp of a logit (2^-8 of it)
+#: comes on top; later steps attend over caches that already differ, so
+#: the gap grows along a generation (PERF.md §6 has the measured gaps).
+#: The bar is 5e-2, the reference's bf16 bar for B5
+#: (tests/test_kernels.py); a wrong mask, slot or position, which this
+#: check is for, moves logits by O(1) of scale.  Wherever the top two
+#: logits of the forward lie further apart than the bar, the argmax must
+#: agree.  This end-to-end bar cannot tell B5 from cuBLAS's order, so
+#: every B5 launch of the bf16 runs is also held against B5's plain
+#: version on the same inputs at TOL_FM_DECODE (:class:`HeldB5`): that
+#: is the sharp check of the bf16 path.  (A bf16 run lies further from
+#: an fp32 forward than from a bf16 one: two bf16 runs share their
+#: roundings until they part, so an fp32 reference gives no sharper bar.)
+TOL_LM_BF16 = 5e-2
+
+
+class HeldB5:
+    """Inside ``with``, every B5 launch the model makes is held against
+    B5's plain version on the same inputs: the step's own q, the live
+    cache after this step's write, its ``slot_pos`` (empty slots
+    included) and the window.  ``decode_step`` calls
+    ``FDK.flash_decode_kernel_call`` through its module, so this object
+    stands in there and launches the kernel once, as the step would; the
+    step goes on with the kernel's output.  The kernel counts its launch
+    on the module's name, so ``launches`` reads and writes the kernel's
+    own counter: one count per launch, as without the check.  Errors are
+    device scalars, read by :meth:`check` after the run."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_decode import kernel as FDK
+        self._fdk, self._launch = FDK, FDK.flash_decode_kernel_call
+        self.errs, self.empty, self.shapes = [], [], set()
+
+    @property
+    def launches(self) -> int:
+        return self._launch.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._launch.launches = n
+
+    def __call__(self, q, k, v, q_pos, kv_pos, *, chunk=None, window=None):
+        out = self._launch(q, k, v, q_pos, kv_pos, chunk=chunk,
+                           window=window)
+        ref = self._fdk.flash_decode_ref(q, k, v, q_pos, kv_pos,
+                                         window=window)
+        self.errs.append((out - ref).abs().max()
+                         / ref.abs().max().clamp_min(1.0))
+        self.empty.append((kv_pos < 0).float().mean())
+        b, hkv, g, d = q.shape
+        self.shapes.add(f"B={b} T={k.shape[1]} Hkv={hkv} G={g} D={d} "
+                        f"{str(k.dtype)[6:]} window {window}")
+        return out
+
+    def __enter__(self):
+        self._fdk.flash_decode_kernel_call = self
+        return self
+
+    def __exit__(self, *exc):
+        self._fdk.flash_decode_kernel_call = self._launch
+
+    def check(self, label: str) -> dict:
+        worst = float(torch.stack(self.errs).max()) if self.errs else math.inf
+        empty = float(torch.stack(self.empty).mean()) if self.empty else 0.0
+        check(worst <= TOL_FM_DECODE,
+              f"{label}: each of {len(self.errs)} B5 launches vs its plain "
+              f"version on the same q, live cache and slot_pos "
+              f"({empty:.1%} of the slots empty): max|err| {worst:.3e} of "
+              f"max(1, |out|) (tol {TOL_FM_DECODE:g}); "
+              f"{', '.join(sorted(self.shapes))}")
+        return {"b5_launches_held": len(self.errs),
+                "b5_vs_plain_of_scale": worst, "empty_slot_share": empty}
+
+
+def lm_engine(params, cfg, dev, *, record: bool = False, **kw):
+    """An ``LMEngine`` on ``dev`` that notes whether the logits of every
+    prefill and decode step it serves are finite (device flags, read after
+    the run) and, with ``record``, keeps each decode step's logits.  Both
+    happen after each ``_admit`` and ``step`` returns, outside the
+    engine's timed spans, and no logits are held past them."""
+    from repro_torch.serving import LMEngine
+
+    class Checked(LMEngine):
+        def compiled_for(self, bucket):
+            fn = super().compiled_for(bucket)
+
+            def run(*args):
+                out = fn(*args)
+                if self.stepping:
+                    self.served.append((bucket, out[0]))
+                return out
+            return run
+
+        def _take_served(self):
+            for bucket, logits in self.served:
+                self.finite.append(torch.isfinite(logits).all())
+                if record and bucket == "decode":
+                    self.decode_logits.append(logits.clone())
+            self.served.clear()
+
+        def _admit(self, slot, req):
+            super()._admit(slot, req)
+            self._take_served()
+
+        def step(self):
+            self.stepping = True
+            try:
+                return super().step()
+            finally:
+                self.stepping = False
+                self._take_served()
+
+    eng = Checked(params, cfg, device=dev, **kw)
+    eng.stepping, eng.served, eng.finite, eng.decode_logits = \
+        False, [], [], []
+    return eng
+
+
+def device_shares(fn, kernel: str, steps: int = 3, top: int = 8) -> dict:
+    """Per call of ``fn``: wall ms (CUDA events), and from
+    ``torch.profiler``'s device-side events (the kernels and copies
+    themselves, not the host ops that launched them) the device time of
+    all, of those whose names hold ``kernel`` and of the ``top`` largest
+    by name, and the number of device events; shares of the wall, or
+    None without a trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    wall = time_ms(fn, steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    total = named = 0.0
+    events = 0
+    by_name = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = ev.device_time_total
+        total += t
+        events += ev.count
+        by_name[ev.key] = t / steps / 1e3
+        if kernel in ev.key:
+            named += t
+    if total <= 0:
+        return {"wall_ms": wall, "device_ms": None, "kernel_ms": None,
+                "busy_share": None, "kernel_share": None, "top_ms": {},
+                "device_events": None}
+    dev_ms, k_ms = total / steps / 1e3, named / steps / 1e3
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall, "device_ms": dev_ms, "kernel_ms": k_ms,
+            "busy_share": dev_ms / wall, "kernel_share": k_ms / wall,
+            "device_events": events / steps,
+            "top_ms": {name[:90]: ms for name, ms in largest}}
+
+
+def lm_prompts(rng, vocab: int, n: int, lo: int, hi: int) -> list:
+    """``n`` prompts of ``lo``-``hi`` tokens (inclusive), drawn from ``rng``."""
+    return [rng.randint(0, vocab, int(length))
+            for length in rng.randint(lo, hi + 1, n)]
+
+
+def served_checks(label, eng, report, n_req, max_new, launches, others,
+                  n_layers) -> None:
+    done = report["done"]
+    check(len(done) == n_req and report["shed"] == 0
+          and all(len(r.out) == max_new and not r.shed for r in done),
+          f"{label}: {len(done)} of {n_req} requests done with {max_new} "
+          f"tokens each, {report['shed']} shed")
+    check(launches == n_layers * report["steps"] and not others,
+          f"{label}: {launches} flash_decode launches == {n_layers} layers x "
+          f"{report['steps']} decode steps; other kernels {others or 'none'}")
+    finite = bool(torch.stack(eng.finite).all())
+    check(finite, f"{label}: every prefill's and decode step's logits "
+                  f"finite ({len(eng.finite)} calls)")
+
+
+def decode_vs_forward(label, eng, cfg, report, tol: float) -> dict:
+    """Each request's decode logits (B5, recorded per step) against
+    ``forward`` over its prompt and its generated tokens (teacher forced,
+    plain attention) with the engine's own weights: the largest error
+    over max(1, max |logit|), and argmax flips where the forward's top two
+    lie further apart than ``tol`` of that scale (``clear_positions``
+    counts those positions)."""
+    from repro_torch.models import transformer as tfm
+    params = eng.workload.compute_params()
+    dec = torch.stack(eng.decode_logits)            # (steps, slots, V)
+    worst, flips, clear, rows = 0.0, 0, 0, 0
+    for slot, r in enumerate(report["done"]):       # rid s sat in slot s
+        pl, n = len(r.prompt), len(r.out)
+        toks = torch.from_numpy(np.concatenate(
+            [r.prompt, r.out[:-1]]).astype(np.int32))[None].to(eng.device)
+        with tfm.xla_rounding():
+            want = tfm.forward(params, cfg, toks)[0][0, pl:].float()
+        got = dec[:n - 1, slot]
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max()) / scale
+        top2 = want.topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol * scale
+        flips += int(((got.argmax(-1) != want.argmax(-1)) & sure).sum())
+        clear += int(sure.sum())
+        rows += n - 1
+        worst = max(worst, err)
+        del want
+    check(worst <= tol and flips == 0,
+          f"{label}: decode (B5) vs teacher-forced forward over {rows} "
+          f"positions: max|err| {worst:.3e} of scale (tol {tol:g}); argmax "
+          f"flips {flips} of {clear} positions whose top two lie > tol apart")
+    return {"max_err_of_scale": worst, "positions": rows,
+            "clear_positions": clear, "argmax_flips": flips}
+
+
+def lm_serving(dev, card: str, kernels, b5: Kernel) -> dict:
+    """Phase 7: dense-LM serving at full width through ``LMEngine``, the
+    decode step's attention on B5.  Returns the phase's numbers, with
+    B5's launches by run under ``b5_launches``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.codesign import H100Model, H100_BF16_FLOPS, \
+        H100_HBM_BPS
+    from repro_torch.kernels.flash_decode import kernel as FDK
+    from repro_torch.models import transformer as tfm
+
+    out = {"b5_launches": {}}
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+
+    def launches_of(run: str) -> tuple[int, dict]:
+        others = {k.name: k.counter.launches for k in kernels
+                  if k is not b5 and k.counter.launches}
+        out["b5_launches"][run] = b5.counter.launches
+        return b5.counter.launches, others
+
+    # -- 7a. h2o-danube-1.8b at full width, 128 slots ----------------------
+    print("== 7a. h2o-danube-1.8b served at full width (LMEngine, B5)")
+    spec = get_arch("h2o-danube-1.8b")
+    cfg = spec.model
+    slots = spec.shapes["decode_32k"].dim("global_batch")
+    max_seq, n_req, max_new = cfg.sliding_window, 192, 32
+    t0 = time.perf_counter()
+    params = tfm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    eng = lm_engine(params, cfg, dev, slots=slots, max_seq=max_seq)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    eng.warm()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm_launches = b5.counter.launches
+    eng.finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() - base
+    prompts = lm_prompts(np.random.RandomState(0), cfg.vocab_size, n_req, 64,
+                         2048)
+    for p in prompts:
+        eng.submit(p, max_new)
+    zero_counts(kernels)
+    report = eng.run()
+    wall, step_s = report["wall_s"], report["decode_step_s"]
+    launches, others = launches_of("danube_serving")
+    peak = torch.cuda.max_memory_allocated() - base
+    served_checks("h2o-danube-1.8b slots=128", eng, report, n_req, max_new,
+                  launches, others, cfg.n_layers)
+    rungs = sorted({eng.bucket_for(len(p)) for p in prompts})
+    check(report["prefill_compiles"] == len(eng.bucket_sizes)
+          and eng.metrics.counter("prefills") == n_req,
+          f"h2o-danube-1.8b: {report['prefill_compiles']} prefill builds for "
+          f"the {len(eng.bucket_sizes)} rungs {eng.bucket_sizes} (warmed), "
+          f"{eng.metrics.counter('prefills')} prefills on rungs {rungs}")
+    tokens = eng.metrics.counter("tokens_emitted")
+    dec_tokens = tokens - n_req
+    p50, p99 = (float(np.percentile(step_s, q)) * 1e3 for q in (50, 99))
+    flops, nbytes = H100Model.lm_decode_step(cfg, slots, max_seq)
+    bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BPS) * 1e3
+    print(f"  init {t_init:.2f} s (fp32 params, torch on the card), warm "
+          f"{t_warm:.2f} s ({len(eng.bucket_sizes)} prefill rungs + decode, "
+          f"{warm_launches} flash_decode launches, counted apart)  [{card}]")
+    print(f"  {n_req} requests, {report['steps']} decode steps, {tokens} "
+          f"tokens in {wall:.3f} s: {tokens / wall:,.1f} tokens/s "
+          f"({dec_tokens / sum(step_s):,.1f} decode tokens/s over the "
+          f"steps)  [{card}]")
+    print(f"  decode step (128 slots, T={max_seq}): p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB: "
+          f"bf16 weights + K/V over all T slots, at 3.35 TB/s; "
+          f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s); p50 / bound "
+          f"{p50 / bound_ms:.2f}  [{card}]")
+    print(f"  device memory above the {base / 2**30:.2f} GiB earlier phases "
+          f"hold: {held / 2**30:.2f} GiB before the run (fp32 params, their "
+          f"bf16 copy, the cache), peak {peak / 2**30:.2f} GiB  [{card}]")
+    rng = np.random.RandomState(5)
+    prefill_ms = {}
+    for r in rungs:
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, r))
+                                .astype(np.int32)).to(dev)
+        prefill_ms[r] = time_ms(lambda: eng.compiled_for(r)(toks), 1)
+    print("  prefill ms per rung (CUDA events): " + ", ".join(
+        f"{r}: {ms:.3f}" for r, ms in prefill_ms.items()) + f"  [{card}]")
+    prefill = eng.compiled_for(rungs[-1])
+    pshares = device_shares(lambda: prefill(toks), "flash_decode", steps=2)
+    if pshares["device_ms"] is not None:
+        print(f"  prefill at rung {rungs[-1]}: {pshares['wall_ms']:.3f} ms, "
+              f"device busy {pshares['device_ms']:.3f} ms "
+              f"({pshares['busy_share']:.1%}) in "
+              f"{pshares['device_events']:.0f} device events  [{card}]")
+        for name, ms in pshares["top_ms"].items():
+            print(f"    device {ms:.3f} ms per prefill: {name}  [{card}]")
+    toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    decode = eng.compiled_for("decode")
+    shares = device_shares(lambda: decode(eng.cache, toks), "flash_decode")
+    b5_ms = shares["kernel_ms"]
+    shown = ("no device time in the trace" if b5_ms is None else
+             f"device busy {shares['device_ms']:.3f} ms "
+             f"({shares['busy_share']:.1%}) in "
+             f"{shares['device_events']:.0f} device events, flash_decode "
+             f"{b5_ms:.3f} ms ({shares['kernel_share']:.1%} of the step)")
+    print(f"  one decode step on the live cache: {shares['wall_ms']:.3f} ms "
+          f"(CUDA events); torch.profiler: {shown}  [{card}]")
+    for name, ms in shares["top_ms"].items():
+        print(f"    device {ms:.3f} ms per step: {name}  [{card}]")
+    with HeldB5() as b5_held:
+        decode(eng.cache, toks)
+    live_b5 = b5_held.check("h2o-danube-1.8b: one decode step on the "
+                            "live cache after the drain")
+    lay = FDK.plan(slots, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.head_dim_, max_seq, 2)
+    out["danube"] = {
+        "slots": slots, "max_seq": max_seq, "requests": n_req,
+        "max_new": max_new, "decode_steps": report["steps"],
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "decode_tokens_per_s": dec_tokens / sum(step_s),
+        "decode_p50_ms": p50, "decode_p99_ms": p99,
+        "decode_bound_ms": bound_ms, "decode_bound_bytes": nbytes,
+        "p50_over_bound": p50 / bound_ms, "prefill_ms": prefill_ms,
+        "held_gib": held / 2**30, "peak_gib": peak / 2**30,
+        "init_s": t_init, "warm_s": t_warm, "warm_b5_launches": warm_launches,
+        "step_profile": shares, "live_cache_b5": live_b5,
+        "prefill_profile": {"rung": rungs[-1], **pshares},
+        "b5_plan": {"partitions": lay.n_parts, "partition_keys": lay.part_len,
+                    "stages": lay.stages, "path": lay.path,
+                    "blocks": lay.blocks}}
+    del eng, decode, prefill
+    torch.cuda.empty_cache()
+
+    # -- 7b. decode against prefill, inside the window ---------------------
+    print("== 7b. decode (B5) vs teacher-forced forward, 4 prompts of "
+          "200-1000 tokens, 24 tokens each")
+    out["decode_vs_prefill"] = {}
+    for dtype, tol in (("float32", TOL_LM_FP32), ("bfloat16", TOL_LM_BF16)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        eng = lm_engine(params, c, dev, record=True, slots=4, max_seq=1024)
+        for p in lm_prompts(np.random.RandomState(1), c.vocab_size, 4, 200,
+                            1000):
+            eng.submit(p, 24)
+        zero_counts(kernels)
+        with HeldB5() as b5_held:
+            report = eng.run()
+        launches, others = launches_of(f"decode_vs_prefill_{dtype}")
+        label = f"h2o-danube-1.8b {dtype} in the window"
+        served_checks(label, eng, report, 4, 24, launches, others,
+                      c.n_layers)
+        out["decode_vs_prefill"][dtype] = {
+            **decode_vs_forward(label, eng, c, report, tol),
+            **b5_held.check(label)}
+        del eng
+        torch.cuda.empty_cache()
+
+    # -- 7c. past the window: the ring wraps --------------------------------
+    print("== 7c. past the window: 2 prompts of 4000 tokens, 160 new (the "
+          "4096-slot ring wraps by 63)")
+    out["past_window"] = {}
+    for dtype, tol in (("float32", TOL_LM_FP32), ("bfloat16", TOL_LM_BF16)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        eng = lm_engine(params, c, dev, record=True, slots=2,
+                        max_seq=max_seq)
+        rng = np.random.RandomState(2)
+        for _ in range(2):
+            eng.submit(rng.randint(0, c.vocab_size, 4000), 160)
+        zero_counts(kernels)
+        with HeldB5() as b5_held:
+            report = eng.run()
+        launches, others = launches_of(f"past_window_{dtype}")
+        label = f"h2o-danube-1.8b {dtype} past the window"
+        served_checks(label, eng, report, 2, 160, launches, others,
+                      c.n_layers)
+        wraps = int((eng.cache["pos"] - max_seq).clamp_min(0).max())
+        check(wraps > 0, f"{label}: the ring wrapped ({wraps} slots "
+                         f"rewritten)")
+        out["past_window"][dtype] = {
+            **decode_vs_forward(label, eng, c, report, tol),
+            **b5_held.check(label)}
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 7d. minicpm-2b at full width: MHA, B5's CUDA-core path -------------
+    print("== 7d. minicpm-2b served at full width (MHA, G=1: B5's CUDA-core "
+          "path; tied head, padded vocab)")
+    cfg = get_arch("minicpm-2b").model
+    params = tfm.init(0, cfg, device=dev)
+    slots, max_seq, n_req, max_new = 16, 1024, 32, 16
+    eng = lm_engine(params, cfg, dev, slots=slots, max_seq=max_seq)
+    eng.warm()
+    eng.finite.clear()
+    for p in lm_prompts(np.random.RandomState(3), cfg.vocab_size, n_req, 64,
+                        512):
+        eng.submit(p, max_new)
+    zero_counts(kernels)
+    report = eng.run()
+    wall, step_s = report["wall_s"], report["decode_step_s"]
+    launches, others = launches_of("minicpm_serving")
+    served_checks("minicpm-2b slots=16", eng, report, n_req, max_new,
+                  launches, others, cfg.n_layers)
+    lay = FDK.plan(slots, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.head_dim_, max_seq, 2)
+    check(not lay.mma and "lm_head" not in params
+          and params["embed"]["w"].shape[0] == 122880,
+          f"minicpm-2b: B5 {lay.path} path ({lay.n_parts} partitions of "
+          f"{lay.part_len} keys, {lay.blocks} blocks), tied head, padded "
+          f"vocab {params['embed']['w'].shape[0]}")
+    tokens = eng.metrics.counter("tokens_emitted")
+    p50 = float(np.percentile(step_s, 50)) * 1e3
+    flops, nbytes = H100Model.lm_decode_step(cfg, slots, max_seq)
+    bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BPS) * 1e3
+    print(f"  {n_req} requests, {report['steps']} decode steps, {tokens} "
+          f"tokens in {wall:.3f} s: {tokens / wall:,.1f} tokens/s; decode "
+          f"step p50 {p50:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({nbytes / 1e9:.3f} GB)  [{card}]")
+    toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    decode = eng.compiled_for("decode")
+    shares = device_shares(lambda: decode(eng.cache, toks), "flash_decode")
+    if shares["device_ms"] is not None:
+        print(f"  one decode step: {shares['wall_ms']:.3f} ms, device busy "
+              f"{shares['device_ms']:.3f} ms ({shares['busy_share']:.1%}) in "
+              f"{shares['device_events']:.0f} device events, flash_decode "
+              f"{shares['kernel_ms']:.3f} ms ({shares['kernel_share']:.1%})"
+              f"  [{card}]")
+    # B5's bf16 G=1, D=64 instance first runs on a main path here: hold
+    # each of a step's 40 launches on the live cache against the plain
+    # version at 7d's own shape.
+    with HeldB5() as b5_held:
+        decode(eng.cache, toks)
+    live_b5 = b5_held.check("minicpm-2b: one decode step on the live "
+                            "cache after the drain")
+    out["minicpm"] = {"slots": slots, "max_seq": max_seq, "requests": n_req,
+                      "decode_steps": report["steps"], "tokens": tokens,
+                      "wall_s": wall, "tokens_per_s": tokens / wall,
+                      "decode_p50_ms": p50, "decode_bound_ms": bound_ms,
+                      "b5_path": lay.path, "step_profile": shares,
+                      "live_cache_b5": live_b5}
+    del eng, params, decode
+    torch.cuda.empty_cache()
+    print("  phi3-medium-14b is not run: its 56 GB of fp32 params and a "
+          "28 GB bf16 copy exceed the card's 80 GB")
+
+    # -- 7e. the CLI, as a user starts it: danube at full width, defaults ---
+    print("== 7e. python -m repro_torch.launch.serve --arch h2o-danube-1.8b")
+    from repro_torch.launch import serve
+    zero_counts(kernels)
+    with HeldB5() as b5_held:
+        report = serve.main(["--arch", "h2o-danube-1.8b"])
+    launches, others = launches_of("serve_cli")
+    layers = get_arch("h2o-danube-1.8b").model.n_layers
+    check(len(report["done"]) == 8 and not report["shed"]
+          and launches == layers * report["steps"] and not others,
+          f"serve CLI on the card: {len(report['done'])} requests done, "
+          f"{launches} flash_decode launches for {report['steps']} decode "
+          f"steps of {layers} layers")
+    out["serve_cli"] = b5_held.check("serve CLI on the card")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1580,32 +2204,19 @@ def main() -> int:
 
     # ---- 4. timing ----------------------------------------------------------
     print("== 4. kernel timing (CUDA events)")
-    rows = []
-    for k in kernels:
-        t = timings[k.name]
-        windows = []
-        ms = time_ms(t.run, t.reps, windows)
-        plain_ms = time_ms(t.plain, t.plain_reps)
-        library_ms = time_ms(t.library, t.reps) if t.library else None
-        t_ops = t.ops / PEAK_FP32_FLOPS * 1e3
-        t_bytes = t.nbytes / PEAK_HBM_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        lib = (f"; {t.library_name} {library_ms:.4f} ms" if t.library else
-               "; no single PyTorch call computes this function")
-        print(f"  {k.name} at {t.label}: {ms:.4f} ms (windows "
-              f"{windows[0][0]:.4f}-{windows[0][1]:.4f}; plain version "
-              f"{plain_ms:.4f} ms{lib}); bound {bound_ms:.4f} ms "
-              f"({t.ops / 1e9:.4f} GFLOP at 67 TFLOP/s fp32 vs "
-              f"{t.nbytes / 1e6:.3f} MB at 3.35 TB/s)  [{card}]")
-        rows.append({
-            "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": t.launches,
-            "max_abs_err": t.max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "ms_windows": windows[0],
-            "at": t.label, **t.extra,
-            "card": card})
+    peaks = (PEAK_FP32_FLOPS, PEAK_HBM_BYTES)
+    rows = [time_row(k, timings[k.name], card, *peaks) for k in kernels]
+    # B5 at the LM path's own decode shape (phase 7 serves it), beside
+    # the decode_32k shape of its row
+    lm_row = time_row(b5, lm_decode_timing(dev), card, *peaks)
+    rows[4]["lm_decode"] = {key: lm_row[key] for key in (
+        "at", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "ms_windows", "partitions", "partition_keys", "stages",
+        "path", "blocks", "warps_per_block")}
+    print(f"  flash_decode plan at {lm_row['at']}: {lm_row['partitions']} "
+          f"partitions of {lm_row['partition_keys']} keys, "
+          f"{lm_row['blocks']} blocks of {lm_row['warps_per_block']} "
+          f"warp(s), {lm_row['stages']}-stage ring, {lm_row['path']} path")
     # B1's and B3's first design (the team layout, which a pinned sender
     # tile selects) on the same inputs, for the record beside the new one
     for i, k in ((0, b1), (2, b3)):
@@ -1671,6 +2282,17 @@ def main() -> int:
     rows[0]["launches_by_phase"]["training"] = train.pop("b1_launches")
     rows[0]["launches"] += rows[0]["launches_by_phase"]["training"]
     print("training: " + json.dumps(train))
+    del timings, main_args
+    torch.cuda.empty_cache()
+
+    # ---- 7. dense LM serving ----------------------------------------------
+    lm = lm_serving(dev, card, kernels, b5)
+    by_run = lm.pop("b5_launches")
+    rows[4]["launches_by_phase"] = {"main_paths": rows[4]["launches"],
+                                    **{f"lm_{k}": v for k, v in by_run.items()}}
+    rows[4]["launches"] = sum(rows[4]["launches_by_phase"].values())
+    rows[4]["lm_decode"]["launches"] = by_run["danube_serving"]
+    print("lm: " + json.dumps(lm))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

@@ -1,15 +1,61 @@
-"""Config schema of the recsys family (counterpart of ``repro.configs.base``).
+"""Config schema (counterpart of ``repro.configs.base``).
 
-The port carries the pieces its slices use: :class:`RecsysConfig`,
-:class:`ShapeSpec`, :class:`ArchSpec`, :data:`RECSYS_SHAPES` and
+The port carries the pieces its slices use: :class:`MoEConfig`,
+:class:`TransformerConfig`, :class:`RecsysConfig`, :class:`ShapeSpec`,
+:class:`ArchSpec`, :data:`LM_SHAPES`, :data:`RECSYS_SHAPES` and
 :data:`JEDI_SHAPES`, field for field as the reference declares them.
-The LM and GNN configs come with their slices.
+The GNN configs come with their slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # Arctic-style dense residual FFN running in parallel with the experts.
+    dense_residual: bool = False
+    router_noise: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None         # default d_model // n_heads
+    moe: Optional[MoEConfig] = None
+    sliding_window: Optional[int] = None   # SWA (h2o-danube)
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"
+    activation: str = "silu"               # SwiGLU by default
+    tie_embeddings: bool = False
+    # remat policy of the reference's train_step; the port's eager layer
+    # loop keeps the field for parity and does not read it
+    remat: str = "layer"
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # the reference's switch to unroll its lax.scans; the port's loops
+    # are Python loops, so the field is kept for parity only
+    unroll_scans: bool = False
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_full_attention(self) -> bool:
+        return self.sliding_window is None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,13 +78,24 @@ class RecsysConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str        # recsys_train | recsys_serve | retrieval | jedi_infer |
-    #                  jedi_train
+    kind: str        # train | prefill | decode | recsys_train |
+    #                  recsys_serve | retrieval | jedi_infer | jedi_train
     dims: dict
 
     def dim(self, k: str, default=None):
         return self.dims.get(k, default)
 
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train",
+                          dict(seq_len=4096, global_batch=256)),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                             dict(seq_len=32768, global_batch=32)),
+    "decode_32k": ShapeSpec("decode_32k", "decode",
+                            dict(seq_len=32768, global_batch=128)),
+    "long_500k": ShapeSpec("long_500k", "decode",
+                           dict(seq_len=524288, global_batch=1)),
+}
 
 RECSYS_SHAPES = {
     "train_batch": ShapeSpec("train_batch", "recsys_train", dict(batch=65536)),
@@ -57,8 +114,8 @@ JEDI_SHAPES = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                  # recsys | jedi
-    model: Any                   # RecsysConfig | JediNetConfig
+    family: str                  # lm | recsys | jedi
+    model: Any                   # TransformerConfig | RecsysConfig | JediNetConfig
     shapes: dict                 # name -> ShapeSpec
     source: str = ""             # citation tag
     notes: str = ""

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_arch("<id>")`` -> ArchSpec.
 
 Counterpart of ``repro.configs.registry`` over the archs whose port
-config exists (each module exports an ``ARCH``); the LM and GNN ids join
-as their slices bring an ``ARCH``.  Until then :data:`PENDING_ARCHS`
+config exists (each module exports an ``ARCH``); the MoE LM and GNN ids
+join as their slices bring an ``ARCH``.  Until then :data:`PENDING_ARCHS`
 names each such id of the reference with its family, so an entry point
 can say which slice it waits for.
 """
@@ -14,6 +14,10 @@ import importlib
 from repro_torch.configs.base import ArchSpec
 
 ARCH_MODULES = {
+    # LM family (dense)
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     # RecSys
     "fm": "repro_torch.configs.fm",
     # the paper's own models
@@ -26,9 +30,6 @@ ARCH_MODULES = {
 PENDING_ARCHS = {
     "arctic-480b": "lm",
     "moonshot-v1-16b-a3b": "lm",
-    "h2o-danube-1.8b": "lm",
-    "minicpm-2b": "lm",
-    "phi3-medium-14b": "lm",
     "gcn-cora": "gnn",
     "pna": "gnn",
     "meshgraphnet": "gnn",

@@ -10,7 +10,8 @@ the design-space exploration:
 
 * ``H100Model`` — the counterpart of the reference's ``TPUModel``: a
   roofline estimate (compute, HBM traffic) of a *batched* JEDI-net
-  inference step on one NVIDIA H100 SXM5.  ``flops`` and ``hbm_bytes``
+  inference step on one NVIDIA H100 SXM5 (and, in ``lm_decode_step``,
+  the work of one dense-LM decode step).  ``flops`` and ``hbm_bytes``
   are the reference's unchanged — they count the model's work, not the
   chip's; ``evaluate`` divides them by the H100's peaks.  The compute
   peak depends on the operand width (``compute_bytes``): fp32 runs on
@@ -212,6 +213,34 @@ class H100Model:
             act += 2 * (n_e * 2 * cfg.n_features)      # B write + read
             act += 2 * (n_e * cfg.d_e)                 # E write + read
         return traffic + act * batch * compute_bytes
+
+    @staticmethod
+    def lm_decode_step(cfg, batch: int, t: int) -> tuple[float, float]:
+        """(FLOPs, HBM bytes) of one dense-LM decode step: ``batch``
+        tokens against a KV cache of ``t`` slots (``cfg`` a
+        ``TransformerConfig``; weights and cache in its compute dtype, as
+        ``serving/lm.py`` holds them).
+
+        Bytes count each input once: every weight matrix (the LM head
+        once, tied or not), the norm scales in fp32,
+        the embedding rows of this step's tokens, the whole K / V cache
+        (all ``t`` slots, empty ones too: the reference's attention and
+        kernel B5 both read them) and ``slot_pos``; and each output
+        once: this step's K / V rows and the fp32 logits.  FLOPs: 2 per
+        multiply-add of the dense products and of the scores and the PV
+        product over the ``t`` slots."""
+        d, hd, f, n = cfg.d_model, cfg.head_dim_, cfg.d_ff, cfg.n_layers
+        elem = 2 if cfg.compute_dtype == "bfloat16" else 4
+        n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+        vocab = -(-cfg.vocab_size // 256) * 256          # padded vocab
+        layer_w = d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d + 3 * d * f
+        attn = 2 * 2 * n_q * hd * t
+        flops = batch * (n * (2 * layer_w + attn) + 2 * d * vocab)
+        weights = (n * layer_w + d * vocab + batch * d) * elem \
+            + (2 * n + 1) * d * 4
+        kv = 2 * n * batch * n_kv * hd * elem
+        nbytes = weights + kv * (t + 1) + 4 * batch * t + 4 * batch * vocab
+        return float(flops), float(nbytes)
 
     @classmethod
     def evaluate(cls, pt: H100DesignPoint, level: str = "edge", *,

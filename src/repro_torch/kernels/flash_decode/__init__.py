@@ -9,6 +9,9 @@ Port of ``repro.kernels.flash_decode``.  Modules:
   ``kernels/csrc/flash_decode.cu`` and its shared-memory plan.
 * ``ops.py``    — the public entry ``flash_decode(q, k, v, q_pos, kv_pos)``.
 
-In the reference, as here, no model path calls it: the LM's decode step
-goes through ``nn/attention.py``.  ``ops.flash_decode`` is its entry point.
+In the reference no model path calls it: its LM decode step attends
+through ``nn/attention.py``.  The port's decode step
+(``models/transformer.py``) launches it once per layer on the card, on
+the same function at one query position; ``ops.flash_decode`` is its
+own entry point.
 """

@@ -1,4 +1,5 @@
-"""Minimal NN substrate: linear and MLP as functions over dict pytrees.
+"""Minimal NN substrate: linear, MLP and RMSNorm as functions over dict
+pytrees.
 
 Port of ``repro.nn.core``.  A Linear is ``{"w": (in, out), "b": (out,)}``
 and is applied as ``x @ w + b`` on the last axis; parameters are stored
@@ -127,3 +128,17 @@ def mlp_apply(p, x, *, activation: str = "relu",
         x = dense_apply(lp, x, compute_dtype=compute_dtype)
         x = act(x) if i < len(layers) - 1 else fact(x)
     return x
+
+
+def rmsnorm_init(dim: int, *, dtype=torch.float32, device="cuda"):
+    return {"scale": torch.ones((dim,), dtype=as_dtype(dtype),
+                                device=resolve_device(device))}
+
+
+def rmsnorm_apply(p, x, *, eps: float = 1e-6):
+    """RMSNorm over the last axis: statistics and scaling in fp32, the
+    result in x's dtype (one rounding, as the reference)."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)

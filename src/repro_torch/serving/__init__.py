@@ -9,9 +9,9 @@
 * **front-end** — :class:`ServingLoop` drains a live request queue
   through the :class:`DeadlineBatcher` into either engine, with
   bounded in-flight backpressure and per-request :class:`RequestFuture`
-  completion.
-
-Not ported yet: the LM engine.
+  completion;
+* **LM** — :class:`LMEngine` (bucketed prefill + slot-recycling decode,
+  its decode attention on kernel B5 on the card).
 """
 
 from repro_torch.serving.batcher import BatchPlan, DeadlineBatcher
@@ -34,6 +34,7 @@ from repro_torch.serving.faults import (
     InjectedFault,
     StaleCacheFn,
 )
+from repro_torch.serving.lm import LMEngine, LMRequest, LMWorkload
 from repro_torch.serving.loop import RequestFuture, ServingLoop
 from repro_torch.serving.metrics import ServingMetrics, kgps, percentile
 from repro_torch.serving.resilient import (
@@ -55,6 +56,9 @@ __all__ = [
     "Fault",
     "FaultInjector",
     "InjectedFault",
+    "LMEngine",
+    "LMRequest",
+    "LMWorkload",
     "NonFiniteOutput",
     "PendingPlan",
     "PendingResult",

@@ -148,6 +148,7 @@ def test_fm_interaction_kernel_matches_plain_version(cuda, b, f, k, dtype):
     (2, 32, 8, 80, 300, 64, None, torch.bfloat16, True),
     (2, 4, 2, 32, 256, 64, 64, torch.float32, False),
     (2, 8, 2, 33, 100, 16, None, torch.bfloat16, False),
+    (3, 6, 6, 64, 256, None, None, torch.bfloat16, True),    # minicpm's MHA
 ])
 def test_flash_decode_kernel_matches_plain_version(cuda, b, h, hkv, d, s,
                                                    chunk, window, dtype,
@@ -431,3 +432,114 @@ def test_trained_weights_serve_through_b1(cuda):
         top2 = np.sort(ref, -1)[:, -2:]
         clear = top2[:, 1] - top2[:, 0] > 2 * 5e-4 * scale
         assert (got.argmax(-1) == ref.argmax(-1))[clear].all()
+
+
+def _lm_cfg(dtype, window=None):
+    """A narrow LM of 4 layers at danube's head shape (D = 80, G = 4, so a
+    bf16 cache takes B5's tensor-core path)."""
+    from repro_torch.configs.base import TransformerConfig
+    return TransformerConfig(
+        name="lm-card", n_layers=4, d_model=640, n_heads=8, n_kv_heads=2,
+        d_ff=1024, vocab_size=1000, sliding_window=window, remat="none",
+        compute_dtype=dtype)
+
+
+def _plain_b5(q, k, v, q_pos, kv_pos, *, window=None, chunk=None):
+    """B5's plain version on the card's tensors (what the wrapper runs on
+    CPU tensors), to stand in for the kernel in a decode step."""
+    return FDK.flash_decode_ref(q, k, v, q_pos, kv_pos, window=window)
+
+
+class _HeldB5:
+    """B5 that also holds each launch against its plain version on the
+    same inputs, appending max|err| over max(1, max|plain|) to ``errs``.
+    The kernel counts its launch on the module's name, so ``launches``
+    reads and writes the kernel's own counter."""
+
+    def __init__(self):
+        self.launch, self.errs = FDK.flash_decode_kernel_call, []
+
+    @property
+    def launches(self):
+        return self.launch.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.launch.launches = n
+
+    def __call__(self, q, k, v, q_pos, kv_pos, *, window=None, chunk=None):
+        out = self.launch(q, k, v, q_pos, kv_pos, window=window, chunk=chunk)
+        ref = _plain_b5(q, k, v, q_pos, kv_pos, window=window)
+        self.errs.append(float((out - ref).abs().max())
+                         / max(1.0, float(ref.abs().max())))
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,window,tol", [
+    ("float32", None, 2e-4), ("bfloat16", None, 5e-2),
+    ("bfloat16", 24, 5e-2)])
+def test_lm_decode_step_on_b5_matches_its_plain_version(cuda, monkeypatch,
+                                                        dtype, window, tol):
+    """``decode_step`` on the card, its attention on B5 (one launch per
+    layer), against the same step with B5's plain version, on one cache
+    filled by 40 steps (with a window of 24 the ring has wrapped).  fp32:
+    B5's own bar, 2e-4 of max(1, max |logit|).  bf16: the reference's bf16
+    bar for B5, 5e-2.  The two attentions agree to fp32 summation order,
+    but one output that lands on the other side of a bf16 rounding makes
+    the two steps round independently from there on: each of a layer's
+    ~11 roundings on the residual stream's way moves its value by up to
+    2^-9 of it, so after 4 layers the logits of the two steps lie ~1e-2
+    of scale apart (1.08e-2 on an H100), where a wrong mask, slot or
+    position moves them by O(1).  The sharp check, in both dtypes: each
+    layer's B5 launch against its plain version on that launch's own
+    inputs, at B5's 2e-4."""
+    from repro_torch.models import transformer as tfm
+    cfg = _lm_cfg(dtype, window)
+    params = tfm.compute_params(tfm.init(0, cfg, device=cuda), cfg)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (3, 41), generator=gen).to(cuda)
+    cache = tfm.init_cache(cfg, 3, 64, device=cuda)
+    with tfm.xla_rounding():
+        for t in range(40):
+            _, cache = tfm.decode_step(params, cfg, cache, toks[:, t])
+        twin = {k: v.clone() for k, v in cache.items()}
+        before = FDK.flash_decode_kernel_call.launches
+        held = _HeldB5()
+        monkeypatch.setattr(FDK, "flash_decode_kernel_call", held)
+        got, cache = tfm.decode_step(params, cfg, cache, toks[:, 40])
+        monkeypatch.undo()
+        assert FDK.flash_decode_kernel_call.launches - before == cfg.n_layers
+        assert len(held.errs) == cfg.n_layers and max(held.errs) <= 2e-4
+        monkeypatch.setattr(FDK, "flash_decode_kernel_call", _plain_b5)
+        want, twin = tfm.decode_step(params, cfg, twin, toks[:, 40])
+    assert bool(torch.isfinite(got).all())
+    _check_tol(got, want, tol)
+    assert torch.equal(cache["slot_pos"], twin["slot_pos"])
+
+
+@pytest.mark.cuda
+def test_lm_engine_on_the_card_decodes_through_b5(cuda, monkeypatch):
+    """LMEngine on the card, fp32: B5 launched once per layer per decode
+    step, and the same greedy tokens as the engine with B5's plain
+    version."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import LMEngine
+    cfg = _lm_cfg("float32")
+    params = tfm.init(0, cfg, device=cuda)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (7, 30, 12, 50, 3)]
+
+    def serve():
+        eng = LMEngine(params, cfg, slots=3, max_seq=64, device=cuda)
+        for p in prompts:
+            eng.submit(p, 6)
+        return eng.run()
+
+    before = FDK.flash_decode_kernel_call.launches
+    got = serve()
+    assert FDK.flash_decode_kernel_call.launches - before \
+        == cfg.n_layers * got["steps"]
+    monkeypatch.setattr(FDK, "flash_decode_kernel_call", _plain_b5)
+    want = serve()
+    assert [r.out for r in got["done"]] == [r.out for r in want["done"]]

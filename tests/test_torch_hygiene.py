@@ -54,7 +54,12 @@ def test_port_has_modules_to_check():
                      "training/grad_compression.py",
                      "checkpoint/checkpoint.py", "launch/train.py",
                      "examples/train_jedinet.py",
-                     "examples/codesign_search.py"):
+                     "examples/codesign_search.py",
+                     "configs/h2o_danube_1_8b.py", "configs/minicpm_2b.py",
+                     "configs/phi3_medium_14b.py", "nn/rope.py",
+                     "nn/attention.py", "models/transformer.py",
+                     "serving/lm.py", "launch/serve.py",
+                     "examples/serve_lm.py"):
         assert required in names
 
 
