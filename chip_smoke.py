@@ -24,9 +24,10 @@ non-zero on any failure:
      G=4, a sliding window, a bf16 cache, S not a multiple of the tile,
      a row with no valid key (with one partition and with many), and
      h2o-danube-1.8b's decode_32k shape at B=1 and B=2, where many
-     sequence partitions combine, and the bf16 shapes phase 7 adds:
-     minicpm-2b's MHA (G=1, D=64; B=16, S=1,024) and the serve CLI's
-     (B=4, S=128);
+     sequence partitions combine, and the bf16 shapes phases 7 and 8
+     add: minicpm-2b's MHA (G=1, D=64; B=16, S=1,024), the serve CLI's
+     (B=4, S=128) and moonshot-v1-16b-a3b's MHA (G=1, D=128; B=16,
+     S=2,048);
 3. the main paths, each with all launch counts set to 0 just before it
    is driven and read just after:
    * ``fused_full`` and ``int8_fused_full`` (B1), ``jedi_linear_full``
@@ -55,8 +56,10 @@ non-zero on any failure:
    graph of 20 launches (the eager loop can measure the host's enqueue
    at these sizes); B1's and B3's team designs beside their warp
    designs; the JEDI kernels' designs per case and B5's partitions,
-   stages and path; B5 also at the LM path's own decode shape (B=128,
-   T=4,096, bf16, window 4,096) beside SDPA, with the plan it picks;
+   stages and path; B5 also at the LM paths' own decode shapes beside
+   SDPA, with the plan each picks: danube's (B=128, T=4,096, bf16,
+   window 4,096) and moonshot's (B=16, T=2,048, H=Hkv=16, D=128, bf16,
+   full attention: the CUDA-core path);
 5. the trigger's serving front at jedi_30p fp32 through
    ``ResilientEngine``, each run with the launch counts set to 0 just
    before it and read just after (B1's and B2's launches here join
@@ -144,10 +147,52 @@ non-zero on any failure:
      with its defaults (8 requests), on the card: B5 launches = 24 x
      steps, each held against its plain version.
 
+8. MoE-LM serving through ``LMEngine``: moonshot-v1-16b-a3b (48
+   layers, d_model 2048, 16 / 16 heads of D=128, 64 experts top-6,
+   vocab 163,840; 28.06 B params), its decode attention one B5 launch
+   per layer (G=1, D=128: the CUDA-core path), its MoE in plain PyTorch
+   (the reference's is plain XLA):
+   * 8a, at full width with bf16 params (fp32 would be 112 GB; bf16 are
+     the values the compute cast makes), 16 slots over a 2,048-slot
+     cache, 48 requests of 64-1,024 prompt tokens and 32 new each: all
+     complete, B5 launches = 48 x decode steps, finite logits; decode ms
+     per step p50 / p99 against the step's bound
+     (``H100Model.lm_decode_step``: every expert's matrices), one step's
+     device busy share, events and B5 ms from ``torch.profiler``,
+     prefill ms per rung, tokens/s, memory held and peak; then one
+     decode step on the live cache and one 1,000-token prefill at the
+     1,024 rung, with each B5 launch held against its plain version
+     (``HeldB5``, 2e-4) and each layer's ``moe_apply`` at the served
+     capacity, drops included, against a plain per-expert loop on the
+     same x, expert ids and gates (``HeldMoE``, ``TOL_MOE_BF16``), and
+     the share of assignments the capacity dropped;
+   * 8b, full width cut to 4 layers in fp32 with a capacity factor of
+     E / k (no drops): decode (B5) against a teacher-forced ``forward``
+     on the served run's routing (``ForcedRoute``; where it differs from
+     the forward's own top-k, at a tie below ``TIE_GAP``) at 2e-3 of
+     scale, 4 prompts of 200-1,000 tokens inside the 1,024-slot cache,
+     and 2 of 1,000 tokens with 64 new, past the ring (held against a
+     forward with a 1,024-token window, what the ring holds); every B5
+     launch held against its plain version.  The bf16 full-depth
+     comparison is left out (see 8b's comment);
+   * 8c, ``python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b``
+     with its defaults, on the card: B5 launches = 48 x steps, each held.
+
+9. LM training through ``launch.train``'s ``lm`` program (Adafactor,
+   warmup-cosine, ``remat="layer"``, ``lm_batches`` of 8 x 256 tokens,
+   the CLI's default lr): h2o-danube-1.8b at full width for 50 steps,
+   its final checkpoint restored bitwise; moonshot-v1-16b-a3b at full
+   width cut to 4 layers (fp32 params) for 50 steps, the MoE's backward
+   through its dispatch.  ms per step, peak memory, the loss starting
+   near ln(V) and finite; then ``FIT_STEPS`` of the program's steps on
+   one batch lowering its loss by ``LOSS_FALL`` nats; no hand-written
+   kernel launched.
+
 Before the last line it prints a ``training: {...}`` line with phase
-6's numbers, an ``lm: {...}`` line with phase 7's and one JSON object
-with each kernel's numbers; the last line is ``{"ok": true, "device":
-{...}}``.
+6's numbers, an ``lm: {...}`` line with phase 7's, a ``moe: {...}``
+line with phase 8's, an ``lm_training: {...}`` line with phase 9's and
+one JSON object with each kernel's numbers; the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -526,6 +571,8 @@ def check_decode_kernel(dev) -> None:
          None, bf16, None),
         ("bf16 D=80 G=4 B=4 S=128 (the serve CLI, 7e)", (4, 32, 8, 80, 128),
          None, None, bf16, None),
+        ("bf16 MHA G=1 D=128 (moonshot-v1-16b-a3b, 8a)",
+         (16, 16, 16, 128, 2048), None, None, bf16, None),
         ("danube decode_32k B=1", (1, 32, 8, 80, 32768), None, None, bf16,
          None),
         ("danube decode_32k B=2", (2, 32, 8, 80, 32768), None, None, bf16,
@@ -740,30 +787,36 @@ def decode_path(dev, card: str, kernels, b5: Kernel) -> Timing:
 #: LM family's decode_32k batch) over its rolling cache of T = 4,096
 #: slots (the sliding window), bf16.
 DANUBE_LM_DECODE = dict(b=128, s=4096, h=32, hkv=8, d=80)
+#: moonshot-v1-16b-a3b's decode step as phase 8a serves it: 16 slots over
+#: a 2,048-slot cache, MHA with 16 heads of D = 128 (G = 1: B5's CUDA-core
+#: path), bf16, full attention.
+MOONSHOT_LM_DECODE = dict(b=16, s=2048, h=16, hkv=16, d=128)
 
 
-def lm_decode_timing(dev) -> Timing:
-    """B5 at the LM path's own decode shape (phase 4): every slot full, the
-    window of 4,096 positions; against its plain version, with SDPA as the
-    library call.  Its launches are filled in from phase 7."""
+def lm_decode_timing(dev, shape=DANUBE_LM_DECODE, window=4096,
+                     model="h2o-danube-1.8b", phase=7) -> Timing:
+    """B5 at an LM path's own decode shape (phase 4): every slot full,
+    with the model's window (None: full attention); against its plain
+    version, with SDPA as the library call.  Its launches are filled in
+    from ``phase``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import kernel as FDK
 
-    b, s, h, hkv, d = (DANUBE_LM_DECODE[n] for n in ("b", "s", "h", "hkv",
-                                                      "d"))
+    b, s, h, hkv, d = (shape[n] for n in ("b", "s", "h", "hkv", "d"))
     gen = torch.Generator(device=dev).manual_seed(7)
     q, k, v, _, kv_pos = decode_inputs(gen, dev, b, h, hkv, d, s,
                                        torch.bfloat16, causal=False,
                                        q_pos=[0] * b)
     q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
     qg = scaled_groups(q, hkv)
-    out = FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos, window=s)
-    ref = FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=s)
+    out = FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos,
+                                       window=window)
+    ref = FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=window)
     err, rel = err_of(out, ref)
     lay = FDK.plan(b, hkv, h // hkv, d, s, k.element_size())
-    label = (f"h2o-danube-1.8b LM decode B={b} S={s} H={h} Hkv={hkv} D={d} "
-             "bf16 window 4096")
+    label = (f"{model} LM decode B={b} S={s} H={h} Hkv={hkv} D={d} bf16"
+             + (f" window {window}" if window else ""))
     check(bool(torch.isfinite(out).all()) and rel <= TOL_FM_DECODE,
           f"flash_decode at {label}: vs plain max|err| {err:.3e} ({rel:.2e} "
           f"of scale, tol {TOL_FM_DECODE:g}); plan: {lay.n_parts} partitions"
@@ -783,12 +836,12 @@ def lm_decode_timing(dev) -> Timing:
     ops_, nbytes = decode_work(b, s, h, hkv, d, k.element_size())
     return Timing(
         label, lambda: FDK.flash_decode_kernel_call(qg, k, v, q_pos, kv_pos,
-                                                    window=s),
-        lambda: FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=s),
+                                                    window=window),
+        lambda: FDK.flash_decode_ref(qg, k, v, q_pos, kv_pos, window=window),
         ops_, nbytes, err, 0, reps=50, plain_reps=5, library=sdpa,
         library_name="scaled_dot_product_attention (bf16, enable_gqa, "
                      "boolean mask)",
-        extra={"main_path": "models.transformer.decode_step (phase 7)",
+        extra={"main_path": f"models.transformer.decode_step (phase {phase})",
                "partitions": lay.n_parts, "partition_keys": lay.part_len,
                "stages": lay.stages, "path": lay.path, "blocks": lay.blocks,
                "warps_per_block": lay.heads})
@@ -1605,13 +1658,26 @@ def served_checks(label, eng, report, n_req, max_new, launches, others,
                   f"finite ({len(eng.finite)} calls)")
 
 
+def logit_gap(got, want, tol: float) -> tuple[float, int, int]:
+    """Decode logits against a forward's, (positions, V): the largest
+    error over max(1, max |want|), the argmax flips where the forward's top
+    two lie further apart than ``tol`` of that scale, and the count of
+    such positions."""
+    scale = max(1.0, float(want.abs().max()))
+    top2 = want.topk(2, -1).values
+    sure = (top2[:, 0] - top2[:, 1]) > tol * scale
+    flips = int(((got.argmax(-1) != want.argmax(-1)) & sure).sum())
+    return float((got - want).abs().max()) / scale, flips, int(sure.sum())
+
+
 def decode_vs_forward(label, eng, cfg, report, tol: float) -> dict:
     """Each request's decode logits (B5, recorded per step) against
     ``forward`` over its prompt and its generated tokens (teacher forced,
-    plain attention) with the engine's own weights: the largest error
-    over max(1, max |logit|), and argmax flips where the forward's top two
-    lie further apart than ``tol`` of that scale (``clear_positions``
-    counts those positions)."""
+    plain attention) with the engine's own weights, at ``cfg`` (the
+    engine's, or one whose window covers what the decode ring holds): the
+    largest error over max(1, max |logit|), and argmax flips where the
+    forward's top two lie further apart than ``tol`` of that scale
+    (``clear_positions`` counts those positions)."""
     from repro_torch.models import transformer as tfm
     params = eng.workload.compute_params()
     dec = torch.stack(eng.decode_logits)            # (steps, slots, V)
@@ -1622,15 +1688,9 @@ def decode_vs_forward(label, eng, cfg, report, tol: float) -> dict:
             [r.prompt, r.out[:-1]]).astype(np.int32))[None].to(eng.device)
         with tfm.xla_rounding():
             want = tfm.forward(params, cfg, toks)[0][0, pl:].float()
-        got = dec[:n - 1, slot]
-        scale = max(1.0, float(want.abs().max()))
-        err = float((got - want).abs().max()) / scale
-        top2 = want.topk(2, -1).values
-        sure = (top2[:, 0] - top2[:, 1]) > tol * scale
-        flips += int(((got.argmax(-1) != want.argmax(-1)) & sure).sum())
-        clear += int(sure.sum())
-        rows += n - 1
-        worst = max(worst, err)
+        err, f, c = logit_gap(dec[:n - 1, slot], want, tol)
+        worst, flips, clear, rows = max(worst, err), flips + f, clear + c, \
+            rows + n - 1
         del want
     check(worst <= tol and flips == 0,
           f"{label}: decode (B5) vs teacher-forced forward over {rows} "
@@ -1897,6 +1957,570 @@ def lm_serving(dev, card: str, kernels, b5: Kernel) -> dict:
           f"steps of {layers} layers")
     out["serve_cli"] = b5_held.check("serve CLI on the card")
     torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 8: MoE LM serving --------------------------------------------------
+
+#: 8a, each layer's ``moe_apply`` at the served capacity (drops included)
+#: against a plain per-expert loop on the same x, expert ids and gates, on
+#: results scaled to max(1, max |out|).  Both take every product in bf16
+#: with fp32 sums and one rounding, but at other row counts (cuBLAS sums
+#: in another order) and the loop adds a token's gated rows in expert
+#: order where the layer adds them in k order, so a value may land one
+#: bf16 rounding (2^-8 of it) apart at each of the gate / up / down
+#: products and at the final cast: a few bf16 ulps of scale, 2^-6 with
+#: room.  A wrong slot, position, drop or gate moves a token's row by
+#: O(1) of its size.
+TOL_MOE_BF16 = 2.0 ** -6
+
+
+def plain_moe(params, moe, x, ids, gates, cdt, activation):
+    """tests/test_moe.py's ``dense_moe_reference`` in torch on the card:
+    for each expert in turn, its first ``capacity`` assignments in
+    priority order ((token, k) order, as the stable sort keeps them),
+    the SwiGLU of those tokens' rows, weighted by their gates and added
+    into an fp32 output.  Returns (out in ``cdt``, kept assignments)."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.nn.core import ACTIVATIONS
+    t, d = x.shape
+    k, c = moe.top_k, capacity(t, moe)
+    act = ACTIVATIONS[activation]
+    xc = x.to(cdt)
+    w = params["experts"]
+    flat, g = ids.reshape(-1), gates.reshape(-1)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    kept = 0
+    for ex in range(moe.n_experts):
+        hit = flat == ex
+        take = torch.nonzero(hit & (torch.cumsum(hit, 0) <= c))[:, 0]
+        if take.numel() == 0:
+            continue
+        tok = take // k
+        xs = xc[tok]
+        mid = act(xs @ w["w_gate"][ex].to(cdt)) * (xs @ w["w_in"][ex].to(cdt))
+        y = mid @ w["w_out"][ex].to(cdt)
+        out.index_add_(0, tok, (y * g[take].to(y.dtype)[:, None]).float())
+        kept += take.numel()
+    return out.to(cdt), kept
+
+
+class HeldMoE:
+    """Inside ``with``, every ``moe_apply`` the model makes is held
+    against :func:`plain_moe` on the same x, with the expert ids and
+    gates of ``moe.route`` on that x (the layer's own routing, so the
+    check is of the dispatch: sort, position, capacity, scatter, gather
+    and combine).  ``models/transformer.py`` calls ``moe_apply`` through
+    its module, so this object stands in there; the model goes on with
+    the layer's own output.  Also counts the assignments the capacity
+    dropped, from the router's ids."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self._moe, self._apply = moe, moe.moe_apply
+        self.errs, self.assigned, self.kept, self.calls = [], 0, 0, []
+
+    def __call__(self, params, moe, x, *, compute_dtype, activation="silu"):
+        out, aux = self._apply(params, moe, x, compute_dtype=compute_dtype,
+                               activation=activation)
+        _, gates, ids = self._moe.route(params, moe, x,
+                                        compute_dtype=compute_dtype)
+        ref, kept = plain_moe(params, moe, x, ids, gates, compute_dtype,
+                              activation)
+        self.errs.append(float((out.float() - ref.float()).abs().max())
+                         / max(1.0, float(ref.float().abs().max())))
+        self.assigned += ids.numel()
+        self.kept += kept
+        self.calls.append((x.shape[0], self._moe.capacity(x.shape[0], moe)))
+        return out, aux
+
+    def __enter__(self):
+        self._moe.moe_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_apply = self._apply
+
+    def check(self, label: str) -> dict:
+        worst = max(self.errs) if self.errs else math.inf
+        dropped = 1.0 - self.kept / max(self.assigned, 1)
+        t, c = self.calls[0] if self.calls else (0, 0)
+        check(worst <= TOL_MOE_BF16,
+              f"{label}: each of {len(self.errs)} layers' moe_apply (T={t} "
+              f"tokens, capacity {c}) vs a plain per-expert loop on the same "
+              f"x, ids and gates: max|err| {worst:.3e} of max(1, |out|) (tol "
+              f"{TOL_MOE_BF16:g}); {dropped:.2%} of {self.assigned} "
+              f"assignments dropped")
+        return {"layers_held": len(self.errs), "tokens": t, "capacity": c,
+                "moe_vs_plain_of_scale": worst,
+                "assignments": self.assigned, "dropped_share": dropped}
+
+
+#: 8b, a routing tie: a (token, layer) whose k-th and (k+1)-th router
+#: probabilities lie within this fraction of the k-th.  Decode (T = slots
+#: rows a product) and the teacher-forced forward (T = S) sum their
+#: products in other orders, so in fp32 their hidden states differ by
+#: ~1e-5 of their size (phase 7b's fp32 gap, PERF.md §6): where a top-k
+#: margin is thinner than that, the two runs may pick other experts,
+#: which moves that token's output by O(1) and, through its K/V, later
+#: positions by far more than the fp32 bar, as it would move between two
+#: runs of the reference.
+TIE_GAP = 1e-3
+
+
+class RouteLog:
+    """Inside ``with``, records the expert ids (T, k) that each
+    ``moe_apply`` call routes to (``moe.route`` on the call's own x, on
+    the host); the call itself runs as it would."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self._moe, self._apply = moe, moe.moe_apply
+        self.calls = []
+
+    def __call__(self, params, moe, x, *, compute_dtype, activation="silu"):
+        ids = self._moe.route(params, moe, x, compute_dtype=compute_dtype)[2]
+        self.calls.append(ids.cpu())
+        return self._apply(params, moe, x, compute_dtype=compute_dtype,
+                           activation=activation)
+
+    def __enter__(self):
+        self._moe.moe_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_apply = self._apply
+
+
+class ForcedRoute:
+    """Inside ``with``, the i-th ``moe.route`` call routes to the expert
+    ids ``forced[i]``, with gates from that call's own router
+    probabilities at those ids (renormalised, as ``route`` does), so a
+    forward takes the routing a served run took and is compared with it
+    on everything else: attention, cache, positions and the MoE's
+    dispatch, all of which still run.  Counts the (token, layer) pairs
+    whose forced experts differ from the call's own top-k, with the
+    call's top-k margin at each."""
+
+    def __init__(self, forced):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+        self.forced, self.calls, self.margins = forced, 0, []
+
+    def __call__(self, params, moe, x, *, compute_dtype):
+        probs, _, own = self._route(params, moe, x,
+                                    compute_dtype=compute_dtype)
+        ids = self.forced[self.calls].to(x.device)
+        self.calls += 1
+        gates = probs.gather(1, ids)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        differ = (own.sort(-1).values != ids.sort(-1).values).any(-1)
+        top = probs.topk(moe.top_k + 1, dim=-1).values
+        margin = (top[:, -2] - top[:, -1]) / top[:, -2]
+        self.margins += margin[differ].tolist()
+        return probs, gates, ids
+
+    def __enter__(self):
+        self._moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def moe_decode_vs_forward(label, eng, cfg, report, tol: float,
+                          log: RouteLog) -> dict:
+    """:func:`decode_vs_forward` for an MoE LM whose requests were all
+    admitted before the first decode step (as many requests as slots):
+    each request's teacher-forced forward takes the routing its served
+    run took, token by token and layer by layer (``log``: the prefill's
+    rows for the prompt, then one decode step's row per generated token;
+    :class:`ForcedRoute`), and is held against the decode logits at
+    ``tol``.  Wherever that routing differs from the forward's own top-k,
+    the forward's margin there must be a tie (below ``TIE_GAP``): a
+    served run whose hidden state went wrong would route off a tie."""
+    from repro_torch.models import transformer as tfm
+    params = eng.workload.compute_params()
+    dec = torch.stack(eng.decode_logits)            # (steps, slots, V)
+    n, layers = eng.slots, cfg.n_layers
+    prefill, decode = log.calls[:n * layers], log.calls[n * layers:]
+    worst, flips, clear, rows, routed, margins = 0.0, 0, 0, 0, 0, []
+    for slot, r in enumerate(report["done"]):       # rid s sat in slot s
+        pl, m = len(r.prompt), len(r.out)
+        forced = [torch.cat([prefill[slot * layers + i][:pl],
+                             torch.stack([decode[j * layers + i][slot]
+                                          for j in range(m - 1)])])
+                  for i in range(layers)]
+        toks = torch.from_numpy(np.concatenate(
+            [r.prompt, r.out[:-1]]).astype(np.int32))[None].to(eng.device)
+        with ForcedRoute(forced) as fr, tfm.xla_rounding():
+            want = tfm.forward(params, cfg, toks)[0][0, pl:].float()
+        err, f, c = logit_gap(dec[:m - 1, slot], want, tol)
+        worst, flips, clear, rows = max(worst, err), flips + f, clear + c, \
+            rows + m - 1
+        routed += (pl + m - 1) * layers
+        margins += fr.margins
+        del want
+    check(len(decode) == report["steps"] * layers
+          and all(g < TIE_GAP for g in margins),
+          f"{label}: {len(margins)} of {routed} (token, layer) routings of "
+          f"the served run differ from the forward's own top-k, each at a "
+          f"tie (margins {', '.join(f'{g:.1e}' for g in margins) or 'none'};"
+          f" bar {TIE_GAP:g})")
+    check(worst <= tol and flips == 0,
+          f"{label}: decode (B5) vs teacher-forced forward on the served "
+          f"routing over {rows} positions: max|err| {worst:.3e} of scale "
+          f"(tol {tol:g}); argmax flips {flips} of {clear} positions whose "
+          f"top two lie > tol apart")
+    return {"max_err_of_scale": worst, "positions": rows,
+            "routings": routed, "routings_at_ties": len(margins),
+            "tie_margins": margins, "clear_positions": clear,
+            "argmax_flips": flips}
+
+
+def moe_serving(dev, card: str, kernels, b5: Kernel) -> dict:
+    """Phase 8: moonshot-v1-16b-a3b served at full width through
+    ``LMEngine``, its decode attention on B5 (G = 1, D = 128), its MoE
+    in plain PyTorch as the reference's is plain XLA.  Returns the
+    phase's numbers, with B5's launches by run under ``b5_launches``."""
+    from repro_torch.common.tree import param_bytes, param_count
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.codesign import H100Model, H100_BF16_FLOPS, \
+        H100_HBM_BPS
+    from repro_torch.kernels.flash_decode import kernel as FDK
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+
+    out = {"b5_launches": {}}
+    base = torch.cuda.memory_allocated()
+
+    def launches_of(run: str) -> tuple[int, dict]:
+        others = {k.name: k.counter.launches for k in kernels
+                  if k is not b5 and k.counter.launches}
+        out["b5_launches"][run] = b5.counter.launches
+        return b5.counter.launches, others
+
+    # -- 8a. moonshot-v1-16b-a3b at full width, 16 slots --------------------
+    print("== 8a. moonshot-v1-16b-a3b served at full width (LMEngine; MoE "
+          "64 experts top-6; B5 at G=1, D=128)")
+    full = get_arch("moonshot-v1-16b-a3b").model
+    # fp32 params would be 112 GB: bf16 params, the same values the
+    # engine's one cast to the compute dtype would make (the memory plan
+    # configs/arctic_480b.py uses)
+    cfg = dataclasses.replace(full, param_dtype="bfloat16")
+    slots, max_seq, n_req, max_new = 16, 2048, 48, 32
+    t0 = time.perf_counter()
+    params = tfm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.empty_cache()              # the init's fp32 temporaries
+    n_params = param_count(params)
+    check(n_params == 28_057_995_264 and all(
+        t.dtype == torch.bfloat16 for t in params["layers"]["moe"]
+        ["experts"].values()),
+        f"moonshot-v1-16b-a3b: {n_params:,} params in bf16 "
+        f"({param_bytes(params) / 1e9:.2f} GB), drawn on the card in "
+        f"{t_init:.2f} s")
+    eng = lm_engine(params, cfg, dev, slots=slots, max_seq=max_seq)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    eng.warm()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm_launches = b5.counter.launches
+    eng.finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() - base
+    prompts = lm_prompts(np.random.RandomState(8), cfg.vocab_size, n_req, 64,
+                         1024)
+    for p in prompts:
+        eng.submit(p, max_new)
+    zero_counts(kernels)
+    report = eng.run()
+    wall, step_s = report["wall_s"], report["decode_step_s"]
+    launches, others = launches_of("moonshot_serving")
+    peak = torch.cuda.max_memory_allocated() - base
+    served_checks("moonshot-v1-16b-a3b slots=16", eng, report, n_req,
+                  max_new, launches, others, cfg.n_layers)
+    rungs = sorted({eng.bucket_for(len(p)) for p in prompts})
+    tokens = eng.metrics.counter("tokens_emitted")
+    dec_tokens = tokens - n_req
+    p50, p99 = (float(np.percentile(step_s, q)) * 1e3 for q in (50, 99))
+    flops, nbytes = H100Model.lm_decode_step(cfg, slots, max_seq)
+    bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BPS) * 1e3
+    print(f"  init {t_init:.2f} s, warm {t_warm:.2f} s "
+          f"({len(eng.bucket_sizes)} prefill rungs + decode, {warm_launches} "
+          f"flash_decode launches, counted apart)  [{card}]")
+    print(f"  {n_req} requests, {report['steps']} decode steps, {tokens} "
+          f"tokens in {wall:.3f} s: {tokens / wall:,.1f} tokens/s "
+          f"({dec_tokens / sum(step_s):,.1f} decode tokens/s over the "
+          f"steps)  [{card}]")
+    print(f"  decode step ({slots} slots, T={max_seq}): p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms; bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} "
+          f"GB: bf16 weights, all 64 experts' three matrices a layer, and "
+          f"K/V over all T slots, at 3.35 TB/s; {flops / 1e12:.3f} TFLOP at "
+          f"989 TFLOP/s); p50 / bound {p50 / bound_ms:.2f}  [{card}]")
+    print(f"  device memory above the {base / 2**30:.2f} GiB earlier phases "
+          f"hold: {held / 2**30:.2f} GiB before the run (bf16 params, the "
+          f"cache), peak {peak / 2**30:.2f} GiB  [{card}]")
+    rng = np.random.RandomState(9)
+    prefill_ms = {}
+    for r in rungs:
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, r))
+                                .astype(np.int32)).to(dev)
+        prefill_ms[r] = time_ms(lambda: eng.compiled_for(r)(toks), 1)
+    print("  prefill ms per rung (CUDA events): " + ", ".join(
+        f"{r}: {ms:.3f}" for r, ms in prefill_ms.items()) + f"  [{card}]")
+    last = ([0] * slots + [r.out[-1] for r in report["done"]])[-slots:]
+    toks = torch.tensor(last, dtype=torch.int32, device=dev)
+    decode = eng.compiled_for("decode")
+    shares = device_shares(lambda: decode(eng.cache, toks), "flash_decode")
+    b5_ms = shares["kernel_ms"]
+    shown = ("no device time in the trace" if b5_ms is None else
+             f"device busy {shares['device_ms']:.3f} ms "
+             f"({shares['busy_share']:.1%}) in "
+             f"{shares['device_events']:.0f} device events, flash_decode "
+             f"{b5_ms:.3f} ms ({shares['kernel_share']:.1%} of the step)")
+    print(f"  one decode step on the live cache: {shares['wall_ms']:.3f} ms "
+          f"(CUDA events); torch.profiler: {shown}  [{card}]")
+    for name, ms in shares["top_ms"].items():
+        print(f"    device {ms:.3f} ms per step: {name}  [{card}]")
+    # one decode step (the drain's last tokens) and one prefill (a 1,000-
+    # token prompt padded to the 1,024 rung, as _admit pads it), each B5
+    # launch and each layer's MoE held against its plain version
+    with HeldB5() as b5_held, HeldMoE() as moe_held:
+        decode(eng.cache, toks)
+    live_b5 = b5_held.check("moonshot-v1-16b-a3b: one decode step on the "
+                            "live cache after the drain")
+    moe_decode = moe_held.check("moonshot-v1-16b-a3b: one decode step")
+    padded = np.zeros((1, 1024), np.int32)
+    padded[0, :1000] = rng.randint(0, cfg.vocab_size, 1000)
+    with HeldMoE() as moe_held:
+        eng.compiled_for(1024)(torch.from_numpy(padded).to(dev))
+    moe_prefill = moe_held.check("moonshot-v1-16b-a3b: one prefill of 1,000 "
+                                 "tokens at the 1,024 rung")
+    lay = FDK.plan(slots, cfg.n_kv_heads, 1, cfg.head_dim_, max_seq, 2)
+    check(not lay.mma, f"moonshot-v1-16b-a3b: B5 {lay.path} path "
+                       f"({lay.n_parts} partitions of {lay.part_len} keys, "
+                       f"{lay.blocks} blocks)")
+    out["moonshot"] = {
+        "slots": slots, "max_seq": max_seq, "requests": n_req,
+        "max_new": max_new, "params": n_params,
+        "decode_steps": report["steps"], "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "decode_tokens_per_s": dec_tokens / sum(step_s),
+        "decode_p50_ms": p50, "decode_p99_ms": p99,
+        "decode_bound_ms": bound_ms, "decode_bound_bytes": nbytes,
+        "p50_over_bound": p50 / bound_ms, "prefill_ms": prefill_ms,
+        "held_gib": held / 2**30, "peak_gib": peak / 2**30,
+        "init_s": t_init, "warm_s": t_warm, "warm_b5_launches": warm_launches,
+        "step_profile": shares, "live_cache_b5": live_b5,
+        "held_moe_decode": moe_decode, "held_moe_prefill": moe_prefill,
+        "b5_plan": {"partitions": lay.n_parts, "partition_keys": lay.part_len,
+                    "stages": lay.stages, "path": lay.path,
+                    "blocks": lay.blocks}}
+    del eng, decode, params
+    torch.cuda.empty_cache()
+
+    # -- 8b. decode vs teacher-forced forward, fp32, 4 layers, no drops ----
+    # The bf16 full-depth decode-vs-forward check is left out: the two runs
+    # route T = slots and T = S tokens, so their capacities and drops
+    # differ, and their bf16 residual streams drift ~1e-2 apart, enough to
+    # swap a token's 6th and 7th expert where they lie close, which moves
+    # that token's output by O(1).  fp32 at full width with a capacity
+    # factor of E / k (so c >= T: nothing drops in either run) holds the
+    # cache, positions and dispatch end to end instead.
+    moe = dataclasses.replace(full.moe, capacity_factor=full.moe.n_experts
+                              / full.moe.top_k)
+    c4 = dataclasses.replace(full, n_layers=4, compute_dtype="float32",
+                             moe=moe)
+    print("== 8b. moonshot-v1-16b-a3b at full width, 4 layers, fp32, "
+          f"capacity factor {moe.capacity_factor:.4f} (no drops): decode "
+          "(B5) vs teacher-forced forward")
+    params = tfm.init(0, c4, device=dev)
+    out["decode_vs_forward"] = {"layers": 4,
+                                "params": param_count(params)}
+    runs = (("in the cache", 4, 1024, 200, 1000, 24, c4),
+            # past the ring: full attention over the last 1,024 positions,
+            # what a forward with a window of 1,024 computes
+            ("past the ring", 2, 1024, 1000, 1000, 64,
+             dataclasses.replace(c4, sliding_window=1024)))
+    for i, (what, n, seq, lo, hi, new, fwd_cfg) in enumerate(runs):
+        eng = lm_engine(params, c4, dev, record=True, slots=n, max_seq=seq)
+        ts = range(1, seq + new + 1)
+        check(all(moe_lib.capacity(t, moe) >= t for t in ts),
+              f"capacity >= T at every T up to {ts[-1]} (decode {n}, "
+              f"prefill rungs, forward): no drops")
+        for p in lm_prompts(np.random.RandomState(10 + i), c4.vocab_size, n,
+                            lo, hi):
+            eng.submit(p, new)
+        zero_counts(kernels)
+        with HeldB5() as b5_held, RouteLog() as routes:
+            report = eng.run()
+        key = what.replace(" ", "_")
+        launches, others = launches_of(f"decode_vs_forward_{key}")
+        label = f"moonshot-v1-16b-a3b 4 layers fp32 {what}"
+        served_checks(label, eng, report, n, new, launches, others,
+                      c4.n_layers)
+        if fwd_cfg.sliding_window:
+            wraps = int((eng.cache["pos"] - seq).clamp_min(0).max())
+            check(wraps > 0, f"{label}: the ring wrapped ({wraps} slots "
+                             f"rewritten)")
+        out["decode_vs_forward"][key] = {
+            **moe_decode_vs_forward(label, eng, fwd_cfg, report,
+                                    TOL_LM_FP32, routes),
+            **b5_held.check(label)}
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 8c. the CLI, as a user starts it --------------------------------
+    print("== 8c. python -m repro_torch.launch.serve --arch "
+          "moonshot-v1-16b-a3b")
+    from repro_torch.launch import serve
+    zero_counts(kernels)
+    with HeldB5() as b5_held:
+        report = serve.main(["--arch", "moonshot-v1-16b-a3b"])
+    launches, others = launches_of("moonshot_serve_cli")
+    check(len(report["done"]) == 8 and not report["shed"]
+          and launches == full.n_layers * report["steps"] and not others,
+          f"serve CLI on the card: {len(report['done'])} requests done, "
+          f"{launches} flash_decode launches for {report['steps']} decode "
+          f"steps of {full.n_layers} layers")
+    out["serve_cli"] = b5_held.check("moonshot serve CLI on the card")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 9: LM training -----------------------------------------------------
+
+#: 9, the bar on the first loss: at init each logit is a sum over
+#: d_model unit-RMS hidden values times N(0, 0.02^2) head weights, so the
+#: logits spread with variance d_model * 4e-4 (~1) and the first loss
+#: lies near ln(V) + var / 2 (+ the MoE's aux loss, ~0.01 a layer):
+#: within 1.5 nats above ln(V).
+LOSS_INIT_MARGIN = 1.5
+#: 9, the fit: FIT_STEPS steps of the program's train step (its
+#: optimizer and schedule from step 0) on one ``lm_batches`` batch must
+#: lower that batch's loss by LOSS_FALL nats.  The stream shows no
+#: learning in 50 steps of this recipe: its next tokens are uniform over
+#: the vocab but for each token's 32 successors, a bigram seen ~3 times
+#: per token in 50 batches of 2,048, while Adafactor moves every weight
+#: by up to lr a step whatever its gradient's size (at the CLI's default
+#: lr, 1e-3 after a 50-step warmup, danube's stream loss rises once the
+#: warmup passes ~5e-4: PERF.md §6).  A fixed batch gives the step one
+#: consistent gradient, so forward, backward and Adafactor's update must
+#: lower it.
+FIT_STEPS = 10
+LOSS_FALL = 0.5
+
+
+def lm_training(dev, card: str, kernels) -> dict:
+    """Phase 9: the LMs trained through ``launch.train``'s ``lm``
+    program (Adafactor, warmup-cosine, ``remat="layer"``, batch 8 x 256
+    tokens of ``lm_batches``, the CLI's default lr): h2o-danube-1.8b at
+    full width with its state through a checkpoint, then
+    moonshot-v1-16b-a3b at full width cut to 4 layers (fp32 params),
+    whose backward runs through the MoE's dispatch; then each fitted to
+    one batch.  Returns the phase's numbers."""
+    import importlib
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import init_state
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    runs = (("h2o-danube-1.8b", "h2o_danube_1_8b", None, True),
+            ("moonshot-v1-16b-a3b", "moonshot_v1_16b_a3b", 4, False))
+    try:
+        for arch_id, module, layers, ckpt in runs:
+            mod = importlib.import_module(f"repro_torch.configs.{module}")
+            arch = mod.ARCH
+            cfg = arch.model if layers is None else dataclasses.replace(
+                arch.model, n_layers=layers)
+            cut = "" if layers is None else f", cut to {layers} layers"
+            print(f"== 9. train {arch_id} at full width{cut} (lm program: "
+                  f"Adafactor, remat={cfg.remat}, batch 8 x 256)")
+            mod.ARCH = dataclasses.replace(arch, model=cfg)
+            try:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                argv = ["--arch", arch_id, "--device", str(dev), "--steps",
+                        "50", "--batch", "8", "--log-every", "10"]
+                if ckpt:
+                    argv += ["--ckpt-dir", f"{tmp}/{module}",
+                             "--ckpt-every", "1000"]
+                zero_counts(kernels)
+                res, _ = _run_main(argv)
+                peak = torch.cuda.max_memory_allocated() - before
+                hist = res["history"]
+                first = hist[0][1]["loss"]
+                ln_v = math.log(cfg.vocab_size)
+                check(all(np.isfinite(m["loss"]) for _, m in hist)
+                      and ln_v <= first <= ln_v + LOSS_INIT_MARGIN,
+                      f"{arch_id}: loss {first:.4f} at step 0 (ln V = "
+                      f"{ln_v:.4f}, bar +{LOSS_INIT_MARGIN}), finite to step"
+                      f" {hist[-1][0]}: " + ", ".join(
+                          f"{m['loss']:.4f}" for _, m in hist))
+                check(sum(k.counter.launches for k in kernels) == 0,
+                      f"{arch_id} training launched no hand-written kernel "
+                      "(plain PyTorch forward and backward, as the "
+                      "reference's XLA)")
+                print(f"  {arch_id}: {res['ms_per_step']:.3f} ms/step over "
+                      f"the loop ({1e3 / res['ms_per_step']:.3f} it/s, CUDA "
+                      f"events), peak device memory {peak / 2**30:.2f} GiB "
+                      f"above the {before / 2**30:.2f} GiB held before  "
+                      f"[{card}]")
+                row = {"layers": cfg.n_layers, "steps": res["steps"],
+                       "batch": [8, 256], "lr": 1e-3,
+                       "ms_per_step": res["ms_per_step"],
+                       "peak_gib": peak / 2**30, "ln_vocab": ln_v,
+                       "losses": {i: m["loss"] for i, m in hist}}
+                if ckpt:
+                    t0 = time.perf_counter()
+                    state, step = CheckpointManager(
+                        f"{tmp}/{module}").restore(device=dev)
+                    t_restore = time.perf_counter() - t0
+                    a, b = tree_leaves(state), tree_leaves(res["state"])
+                    same = len(a) == len(b) and all(
+                        torch.equal(x, y) for x, y in zip(a, b))
+                    check(step == 50 and same,
+                          f"{arch_id}: the final checkpoint restores step "
+                          f"{step} bitwise ({len(a)} leaves: params, "
+                          f"Adafactor's factored state, step) in "
+                          f"{t_restore:.2f} s")
+                    row["checkpoint_restore_s"] = t_restore
+                    del state, a, b
+                del res
+                torch.cuda.empty_cache()
+                # the fit: the program's step from the same init on one batch
+                init_fn, step_fn, batches, opt = train_cli.make_program(
+                    arch_id, 8, 1e-3, dev)
+                state = init_state(0, init_fn, opt)
+                batch = train_cli.to_device(next(batches), dev)
+                fit = []
+                for _ in range(FIT_STEPS):
+                    state, m = step_fn(state, batch)
+                    fit.append(m["loss"])
+                fit = [float(v) for v in fit]
+                check(fit[-1] <= fit[0] - LOSS_FALL,
+                      f"{arch_id}: {FIT_STEPS} steps on one batch lower its "
+                      f"loss from {fit[0]:.4f} to {fit[-1]:.4f} (bar: "
+                      f"{LOSS_FALL} nats)")
+                row["fit_losses"] = fit
+                out[arch_id] = row
+                del state, batch
+            finally:
+                mod.ARCH = arch
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2213,10 +2837,17 @@ def main() -> int:
         "at", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "ms_windows", "partitions", "partition_keys", "stages",
         "path", "blocks", "warps_per_block")}
-    print(f"  flash_decode plan at {lm_row['at']}: {lm_row['partitions']} "
-          f"partitions of {lm_row['partition_keys']} keys, "
-          f"{lm_row['blocks']} blocks of {lm_row['warps_per_block']} "
-          f"warp(s), {lm_row['stages']}-stage ring, {lm_row['path']} path")
+    # and at the MoE LM's (phase 8a serves it): G = 1, D = 128
+    moe_row = time_row(b5, lm_decode_timing(
+        dev, MOONSHOT_LM_DECODE, None, "moonshot-v1-16b-a3b", 8), card,
+        *peaks)
+    rows[4]["moe_decode"] = {key: moe_row[key] for key in rows[4][
+        "lm_decode"]}
+    for row in (lm_row, moe_row):
+        print(f"  flash_decode plan at {row['at']}: {row['partitions']} "
+              f"partitions of {row['partition_keys']} keys, "
+              f"{row['blocks']} blocks of {row['warps_per_block']} "
+              f"warp(s), {row['stages']}-stage ring, {row['path']} path")
     # B1's and B3's first design (the team layout, which a pinned sender
     # tile selects) on the same inputs, for the record beside the new one
     for i, k in ((0, b1), (2, b3)):
@@ -2293,6 +2924,21 @@ def main() -> int:
     rows[4]["launches"] = sum(rows[4]["launches_by_phase"].values())
     rows[4]["lm_decode"]["launches"] = by_run["danube_serving"]
     print("lm: " + json.dumps(lm))
+    del lm
+    torch.cuda.empty_cache()
+
+    # ---- 8. MoE LM serving ----------------------------------------------
+    moe = moe_serving(dev, card, kernels, b5)
+    by_run = moe.pop("b5_launches")
+    rows[4]["launches_by_phase"].update(
+        {f"moe_{k}": v for k, v in by_run.items()})
+    rows[4]["launches"] = sum(rows[4]["launches_by_phase"].values())
+    rows[4]["moe_decode"]["launches"] = by_run["moonshot_serving"]
+    print("moe: " + json.dumps(moe))
+
+    # ---- 9. LM training ---------------------------------------------------
+    lm_train = lm_training(dev, card, kernels)
+    print("lm_training: " + json.dumps(lm_train))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

@@ -4,7 +4,9 @@
 parity tests initialise once on the JAX side, convert the pytree to
 numpy, and hand it here.  The layout is kept as it is: a Linear is
 ``{"w": (in, out), "b": (out,)}`` multiplied as ``x @ w``; int8 ``w``
-and the scalar fp32 ``w_scale`` of quantized layers stay as they are.
+and the scalar fp32 ``w_scale`` of quantized layers stay as they are;
+bf16 leaves (``ml_dtypes.bfloat16`` in numpy, e.g. arctic-480b's
+``param_dtype``) become bf16 tensors bit for bit.
 """
 
 from __future__ import annotations
@@ -16,14 +18,21 @@ from repro_torch import resolve_device
 from repro_torch.common.tree import tree_map
 
 
+def _tensor(leaf) -> torch.Tensor:
+    a = np.array(np.asarray(leaf), copy=True)
+    if a.dtype.name == "bfloat16":               # numpy has no bf16 of its own
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree, *, device="cuda"):
     """A JAX param pytree of numpy-convertible leaves — e.g. ``{"fr"|"fo"|
     "phi": {"layers": [{"w","b"[,"w_scale"]}]}}`` or one MLP's
     ``{"layers": [...]}`` — as the same structure of torch tensors on
-    ``device``, dtypes unchanged (fp32 stays fp32, int8 stays int8)."""
+    ``device``, dtypes unchanged (fp32 stays fp32, int8 stays int8, bf16
+    stays bf16)."""
     dev = resolve_device(device)
-    return tree_map(lambda leaf: torch.from_numpy(
-        np.array(np.asarray(leaf), copy=True)).to(dev), tree)
+    return tree_map(lambda leaf: _tensor(leaf).to(dev), tree)
 
 
 def params_to_numpy(params):

@@ -40,8 +40,8 @@ class TransformerConfig:
     norm: str = "rmsnorm"
     activation: str = "silu"               # SwiGLU by default
     tie_embeddings: bool = False
-    # remat policy of the reference's train_step; the port's eager layer
-    # loop keeps the field for parity and does not read it
+    # per-layer rematerialisation in training: "layer" recomputes each
+    # layer's activations in the backward (torch.utils.checkpoint)
     remat: str = "layer"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -1,10 +1,10 @@
 """Architecture registry: ``get_arch("<id>")`` -> ArchSpec.
 
 Counterpart of ``repro.configs.registry`` over the archs whose port
-config exists (each module exports an ``ARCH``); the MoE LM and GNN ids
-join as their slices bring an ``ARCH``.  Until then :data:`PENDING_ARCHS`
-names each such id of the reference with its family, so an entry point
-can say which slice it waits for.
+config exists (each module exports an ``ARCH``); the GNN ids join as
+their slice brings an ``ARCH``.  Until then :data:`PENDING_ARCHS` names
+each such id of the reference with its family, so an entry point can say
+which slice it waits for.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import importlib
 from repro_torch.configs.base import ArchSpec
 
 ARCH_MODULES = {
+    # LM family (MoE)
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     # LM family (dense)
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
@@ -28,8 +31,6 @@ ARCH_MODULES = {
 
 #: the reference's archs that the port has no config for yet -> family
 PENDING_ARCHS = {
-    "arctic-480b": "lm",
-    "moonshot-v1-16b-a3b": "lm",
     "gcn-cora": "gnn",
     "pna": "gnn",
     "meshgraphnet": "gnn",

@@ -216,10 +216,10 @@ class H100Model:
 
     @staticmethod
     def lm_decode_step(cfg, batch: int, t: int) -> tuple[float, float]:
-        """(FLOPs, HBM bytes) of one dense-LM decode step: ``batch``
-        tokens against a KV cache of ``t`` slots (``cfg`` a
-        ``TransformerConfig``; weights and cache in its compute dtype, as
-        ``serving/lm.py`` holds them).
+        """(FLOPs, HBM bytes) of one LM decode step: ``batch`` tokens
+        against a KV cache of ``t`` slots (``cfg`` a ``TransformerConfig``;
+        weights and cache in its compute dtype, as ``serving/lm.py`` holds
+        them).
 
         Bytes count each input once: every weight matrix (the LM head
         once, tied or not), the norm scales in fp32,
@@ -228,14 +228,34 @@ class H100Model:
         kernel B5 both read them) and ``slot_pos``; and each output
         once: this step's K / V rows and the fp32 logits.  FLOPs: 2 per
         multiply-add of the dense products and of the scores and the PV
-        product over the ``t`` slots."""
+        product over the ``t`` slots.
+
+        An MoE layer (``cfg.moe``) counts its router (``d x E``) and the
+        three matrices of EVERY expert, since the capacity dispatch runs
+        all ``E`` expert products whatever the routing, and the FLOPs of
+        the ``E x c`` capacity rows (``c = models.moe.capacity(batch)``:
+        8 at 16 slots, 512 rows for 96 assignments); Arctic's dense
+        residual FFN is counted as a dense layer's."""
+        from repro_torch.models.moe import capacity
         d, hd, f, n = cfg.d_model, cfg.head_dim_, cfg.d_ff, cfg.n_layers
         elem = 2 if cfg.compute_dtype == "bfloat16" else 4
         n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
         vocab = -(-cfg.vocab_size // 256) * 256          # padded vocab
-        layer_w = d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d + 3 * d * f
+        ffn_w = 3 * d * f
+        # the products every token of the step runs
+        token_w = d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d
+        layer_w, layer_flops = token_w, 0
+        if cfg.moe is None or cfg.moe.dense_residual:
+            token_w += ffn_w
+            layer_w += ffn_w
+        if cfg.moe is not None:
+            e = cfg.moe.n_experts
+            token_w += d * e                             # the router
+            layer_w += d * e + e * ffn_w
+            layer_flops = 2 * e * capacity(batch, cfg.moe) * ffn_w
         attn = 2 * 2 * n_q * hd * t
-        flops = batch * (n * (2 * layer_w + attn) + 2 * d * vocab)
+        flops = n * (batch * (2 * token_w + attn) + layer_flops) \
+            + batch * 2 * d * vocab
         weights = (n * layer_w + d * vocab + batch * d) * elem \
             + (2 * n + 1) * d * 4
         kv = 2 * n * batch * n_kv * hd * elem

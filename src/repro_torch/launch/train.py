@@ -37,7 +37,6 @@ from repro_torch import resolve_device
 
 #: families whose port waits for a later slice, with its ROADMAP item
 PENDING_FAMILIES = {
-    "lm": "ROADMAP Queue A item 9 (LM)",
     "gnn": "ROADMAP Queue A item 10 (GNN zoo)",
 }
 
@@ -84,11 +83,12 @@ def make_program(arch_id: str, batch: int, lr: float, device="cuda"):
     """(init_fn, step_fn, batch_iter, optimizer) for a trainable arch;
     ``init_fn(seed)`` draws the params on ``device``: for a JEDI-net the
     reference's initial weights at the same seed (``common/prng.py``),
-    for ``fm`` the port's own draw on the device."""
+    for ``fm`` and the LMs the port's own draw on the device (replaying
+    an LM's billions of normals in numpy would take hours)."""
     from repro_torch.common import prng
     from repro_torch.configs.registry import PENDING_ARCHS, get_arch
     from repro_torch.training import make_optimizer, make_train_step
-    from repro_torch.training.schedule import warmup_cosine
+    from repro_torch.training.schedule import warmup_cosine, wsd
 
     family = PENDING_ARCHS.get(arch_id) or get_arch(arch_id).family
     if family in PENDING_FAMILIES:
@@ -107,6 +107,21 @@ def make_program(arch_id: str, batch: int, lr: float, device="cuda"):
             lambda seed: inet.init(prng.key(seed), cfg, device=dev),
             make_train_step(lambda p, b: inet.loss_fn(p, cfg, b), opt),
             jet_batches(0, batch, cfg.n_objects, cfg.n_features),
+            opt,
+        )
+    if family == "lm":
+        from repro_torch.data.lm_data import lm_batches
+        from repro_torch.models import transformer as tfm
+        cfg = arch.model
+        # schedule: minicpm uses its signature WSD schedule
+        sched = (wsd(lr, 50, 5000) if arch.arch_id == "minicpm-2b"
+                 else warmup_cosine(lr, 50, 5000))
+        opt = make_optimizer("adafactor", sched)
+        return (
+            lambda seed: tfm.init(seed, cfg, device=dev),
+            make_train_step(
+                lambda p, b: tfm.loss_fn(p, cfg, b, logit_chunk=None), opt),
+            lm_batches(0, batch, 256, cfg.vocab_size),
             opt,
         )
     if family == "recsys":

@@ -1,8 +1,9 @@
-"""Decoder-only dense LM: GQA, RoPE, sliding-window attention, SwiGLU.
+"""Decoder-only LM family: dense + MoE, GQA, RoPE, SWA.
 
-Port of ``repro.models.transformer`` for the dense architectures
-(h2o-danube-1.8b, minicpm-2b, phi3-medium-14b); the MoE FFN waits for
-ROADMAP item 9.  Entry points, as the reference's:
+Port of ``repro.models.transformer`` for its five architectures: the
+dense h2o-danube-1.8b, minicpm-2b and phi3-medium-14b, and the MoE
+moonshot-v1-16b-a3b and arctic-480b (``models/moe.py``, with Arctic's
+parallel dense residual FFN).  Entry points, as the reference's:
 
 * ``forward``     : train / prefill logits (+ KV cache on request);
 * ``loss_fn``     : next-token cross-entropy, optionally in logit chunks;
@@ -11,30 +12,36 @@ ROADMAP item 9.  Entry points, as the reference's:
 
 The parameters keep the reference's layout: every leaf of ``"layers"``
 is stacked over a leading ``n_layers`` axis, which a Python loop walks
-(the reference's ``lax.scan``; no remat, no sharding constraints, which
-do nothing without a mesh).  Params are fp32 and cast to the compute
-dtype at use, as the reference's ``dense_apply`` does;
-:func:`compute_params` does that cast once for a caller that runs many
-steps (``serving/lm.py``).
+(the reference's ``lax.scan``; no sharding constraints, which do nothing
+without a mesh).  ``remat="layer"`` (every LM config's) recomputes each
+layer in the backward when gradients are on, as the reference's
+``jax.checkpoint`` around its scan body.  Params are stored in
+``param_dtype`` and cast to the compute dtype at use, as the reference's
+``dense_apply`` does; :func:`compute_params` does that cast once for a
+caller that runs many steps (``serving/lm.py``).
 
 On the card the decode step's attention is one launch of kernel B5
 (``kernels/flash_decode``) per layer; prefill and training attend with
 the plain :func:`repro_torch.nn.attention.attention`.  The dense products
-stay ``torch.matmul`` (:func:`_dot`), as the reference leaves them to XLA.
+and the MoE's router and expert products stay ``torch.matmul``
+(:func:`repro_torch.nn.core.dot`), as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common import prng
-from repro_torch.common.tree import path_map, tree_map
+from repro_torch.common.tree import path_map, tree_leaves, tree_map
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.kernels.flash_decode import kernel as FDK
+from repro_torch.models import moe as moe_lib
 from repro_torch.nn import core as nn
 from repro_torch.nn.attention import attention, scale_q
 from repro_torch.nn.rope import apply_rope, rope_cos_sin
@@ -46,13 +53,6 @@ def padded_vocab(cfg: TransformerConfig, multiple: int = 256) -> int:
     keep them, so a greedy argmax may pick one, as the reference's may;
     nothing masks them."""
     return -(-cfg.vocab_size // multiple) * multiple
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet; it waits for "
-            "ROADMAP Queue A item 9 (models/moe.py)")
 
 
 @contextlib.contextmanager
@@ -78,28 +78,10 @@ def xla_rounding():
         mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32 = saved
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the operands' dtype, bf16 with exact products, fp32
-    sums and one rounding of the result.
-
-    The product helper at full width: ``nn.core.matmul`` takes a bf16
-    product as ``(a.float() @ b.float()).to(bf16)``, which at danube's
-    width would copy 1.83 B weights to fp32 on every decode step and run
-    fp32 GEMMs.  On the card bf16 ``torch.matmul`` computes the same
-    function (cuBLAS, fp32 accumulation, reduced-precision reduction off
-    inside :func:`xla_rounding`).  On the CPU, where torch's bf16 GEMM may
-    round partial sums, ``nn.core.matmul`` keeps the reference's
-    rounding; the JEDI paths keep ``nn.core.matmul`` everywhere.
-    """
-    if x.is_cuda:
-        return torch.matmul(x, w)
-    return nn.matmul(x, w)
-
-
 def _dense(p, x, cdt) -> torch.Tensor:
     """The reference's ``dense_apply`` without bias: x and w cast to the
     compute dtype (a no-op on :func:`compute_params`' weights)."""
-    return _dot(x.to(cdt), p["w"].to(cdt))
+    return nn.dot(x.to(cdt), p["w"].to(cdt))
 
 
 # ---------------------------------------------------------------------------
@@ -109,18 +91,24 @@ def _dense(p, x, cdt) -> torch.Tensor:
 def _layer_shapes(cfg: TransformerConfig) -> dict:
     """``(group, name) -> (key index, shape, fan_in)`` of one layer's
     weights: the index into the reference's eight layer keys
-    (``ks[0..3]`` attention, ``ks[5..7]`` FFN; ``ks[4]`` is the MoE's)."""
+    (``ks[0..3]`` attention, ``ks[5..7]`` FFN; ``ks[4]`` is the MoE's,
+    whose weights :func:`moe_lib.moe_shapes` lists).  An MoE layer has
+    the FFN only with Arctic's dense residual."""
     d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    shapes = {
         ("attn", "wq"): (0, (d, n_q * hd), d),
         ("attn", "wk"): (1, (d, n_kv * hd), d),
         ("attn", "wv"): (2, (d, n_kv * hd), d),
         ("attn", "wo"): (3, (n_q * hd, d), n_q * hd),
-        ("ffn", "w_gate"): (5, (d, f), d),
-        ("ffn", "w_in"): (6, (d, f), d),
-        ("ffn", "w_out"): (7, (f, d), f),
     }
+    if cfg.moe is None or cfg.moe.dense_residual:
+        shapes.update({
+            ("ffn", "w_gate"): (5, (d, f), d),
+            ("ffn", "w_in"): (6, (d, f), d),
+            ("ffn", "w_out"): (7, (f, d), f),
+        })
+    return shapes
 
 
 def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
@@ -131,9 +119,11 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
     splits, the vmap over the layer keys, each weight within a few ulps),
     drawn in numpy on the host; or an int, which draws with torch on the
     device (the card's way: replaying 1.83 B normals in numpy would take
-    minutes), the same shapes and scales from another stream.
+    minutes), the same shapes and scales from another stream.  From a
+    seed the MoE's stacked expert leaves are drawn layer by layer into a
+    ``param_dtype`` tensor: moonshot's whole (48, 64, 2048, 1408) leaf in
+    fp32 would be a 35 GB temporary.
     """
-    _dense_only(cfg)
     dev = resolve_device(device)
     pd = nn.as_dtype(cfg.param_dtype)
     v, d, n = padded_vocab(cfg), cfg.d_model, cfg.n_layers
@@ -148,6 +138,14 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
         stacked = {path: normal((n, *shape)) * (2.0 / fan_in) ** 0.5
                    for path, (_, shape, fan_in) in shapes.items()}
         head = normal((d, v)) * 0.02
+        if cfg.moe is not None:
+            moe = {}
+            for path, (_, shape, std) in moe_lib.moe_shapes(
+                    cfg.moe, d, cfg.d_ff).items():
+                t = torch.empty((n, *shape), dtype=pd, device=dev)
+                for i in range(n):
+                    t[i] = normal(shape) * std
+                moe[path] = t
     else:
         km, kl, kh = prng.split(key_or_seed, 3)
         layer_keys = [prng.split(k, 8) for k in prng.split(kl, n)]
@@ -157,6 +155,12 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
                                       for ks in layer_keys])
                    for path, (i, shape, fan_in) in shapes.items()}
         head = prng.normal(kh, (d, v)) * 0.02
+        if cfg.moe is not None:
+            per_layer = [moe_lib.init_moe(ks[4], cfg.moe, d, cfg.d_ff,
+                                          dtype=pd, device="cpu")
+                         for ks in layer_keys]
+            moe = {(g, name): torch.stack([p[g][name] for p in per_layer])
+                   for g, name in moe_lib.moe_shapes(cfg.moe, d, cfg.d_ff)}
 
     def w(t):
         return {"w": t.to(dtype=pd, device=dev)}
@@ -164,10 +168,13 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
     def norm():
         return {"scale": torch.ones((n, d), dtype=pd, device=dev)}
 
-    layers = {"attn_norm": norm(), "attn": {}, "ffn_norm": norm(),
-              "ffn": {}}
+    layers = {"attn_norm": norm(), "attn": {}, "ffn_norm": norm()}
     for (group, name), t in stacked.items():
-        layers[group][name] = w(t)
+        layers.setdefault(group, {})[name] = w(t)
+    if cfg.moe is not None:
+        layers["moe"] = {"router": {}, "experts": {}}
+        for (group, name), t in moe.items():
+            layers["moe"][group][name] = t.to(dtype=pd, device=dev)
     params = {"embed": w(embed), "layers": layers,
               "final_norm": nn.rmsnorm_init(d, dtype=pd, device=dev)}
     if not cfg.tie_embeddings:
@@ -177,7 +184,9 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
 
 def compute_params(params, cfg: TransformerConfig):
     """``params`` with every weight matrix (the ``"w"`` leaves: dense
-    layers, embedding, LM head) cast to the compute dtype, once.
+    layers, embedding, LM head, MoE router; and the experts' ``w_gate`` /
+    ``w_in`` / ``w_out``, 97% of moonshot's params) cast to the compute
+    dtype, once (a no-op on weights already in it).
 
     The per-call weight cast: the reference's ``dense_apply`` casts the
     fp32 params on every call, and its serving closes them into
@@ -187,9 +196,11 @@ def compute_params(params, cfg: TransformerConfig):
     scales stay fp32, as the reference reads them.
     """
     cdt = nn.as_dtype(cfg.compute_dtype)
-    return path_map(
-        lambda path, t: t.to(cdt) if path.split("/")[-1] == "w" else t,
-        params)
+
+    def cast(path, t):
+        *_, group, name = ("", *path.split("/"))
+        return t.to(cdt) if name == "w" or group == "experts" else t
+    return path_map(cast, params)
 
 
 def _layer(layers, i: int):
@@ -276,13 +287,25 @@ def _dense_ffn(lp, cfg: TransformerConfig, x):
 
 def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
               kv_chunk=None, q_chunk=None):
-    """One transformer block. Returns (h, kv)."""
+    """One transformer block. Returns (h, kv, aux_loss); the MoE takes
+    the block's B * S tokens as one (T, d) batch; a dense block's aux is
+    None (no device op for a zero in every layer of every decode step)."""
+    cdt = nn.as_dtype(cfg.compute_dtype)
     attn_out, kv = _attn_block(lp, cfg, h, q_pos, rope, cache=cache,
                                kv_chunk=kv_chunk, q_chunk=q_chunk)
     h = h + attn_out
     x = nn.rmsnorm_apply(lp["ffn_norm"], h)
-    y = _dense_ffn(lp["ffn"], cfg, x)
-    return h + y.to(h.dtype), kv
+    if cfg.moe is not None:
+        b, s, d = x.shape
+        y, aux = moe_lib.moe_apply(lp["moe"], cfg.moe, x.reshape(b * s, d),
+                                   compute_dtype=cdt,
+                                   activation=cfg.activation)
+        y = y.reshape(b, s, d)
+        if cfg.moe.dense_residual:
+            y = y + _dense_ffn(lp["ffn"], cfg, x)
+    else:
+        y, aux = _dense_ffn(lp["ffn"], cfg, x), None
+    return h + y.to(h.dtype), kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -307,30 +330,43 @@ def forward(params, cfg: TransformerConfig, tokens, *, return_cache=False,
     cdt = nn.as_dtype(cfg.compute_dtype)
     out = forward_hidden(params, cfg, tokens, return_cache=return_cache,
                          kv_chunk=kv_chunk, q_chunk=q_chunk)
-    logits = _dot(out[0], _head_weight(params, cfg, cdt))
+    logits = nn.dot(out[0], _head_weight(params, cfg, cdt))
     return (logits, *out[1:])
 
 
 def forward_hidden(params, cfg: TransformerConfig, tokens, *,
                    return_cache=False, kv_chunk=2048, q_chunk=None):
-    """tokens: (B, S) int -> (h (B, S, d), aux_loss [, cache]); the cache
-    holds k / v stacked as (n_layers, B, S, n_kv, hd) and ``pos`` = S."""
-    _dense_only(cfg)
+    """tokens: (B, S) int -> (h (B, S, d), aux_loss [, cache]); aux_loss
+    is the sum of the layers' MoE aux losses (0 for a dense LM), the
+    cache holds k / v stacked as (n_layers, B, S, n_kv, hd) and ``pos`` =
+    S.  With ``remat="layer"``, grad mode on and a param that requires
+    grad, each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward
+    instead of kept.  Serving never asks for grads, so it runs no remat."""
     cdt = nn.as_dtype(cfg.compute_dtype)
     b, s = tokens.shape
     h = _embed(params, tokens, cdt)
     q_pos = torch.arange(s, dtype=torch.int32,
                          device=tokens.device)[None].expand(b, s)
     rope = rope_cos_sin(q_pos, cfg.head_dim_, cfg.rope_theta)
-    ks, vs = [], []
+    remat = cfg.remat == "layer" and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+    ks, vs, auxes = [], [], []
     for i in range(cfg.n_layers):
-        h, (k, v) = _layer_fn(_layer(params["layers"], i), cfg, h, q_pos,
-                              rope, kv_chunk=kv_chunk, q_chunk=q_chunk)
+        body = functools.partial(_layer_fn, _layer(params["layers"], i), cfg,
+                                 q_pos=q_pos, rope=rope, kv_chunk=kv_chunk,
+                                 q_chunk=q_chunk)
+        if remat:
+            h, (k, v), aux = checkpoint(body, h, use_reentrant=False)
+        else:
+            h, (k, v), aux = body(h)
+        auxes.append(aux)
         if return_cache:
             ks.append(k)
             vs.append(v)
     h = nn.rmsnorm_apply(params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = (torch.stack(auxes).sum() if cfg.moe is not None else
+           torch.zeros((), dtype=torch.float32, device=tokens.device))
     if return_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "pos": torch.full((b,), s, dtype=torch.int32,
@@ -341,7 +377,7 @@ def forward_hidden(params, cfg: TransformerConfig, tokens, *,
 
 def _chunk_nll(h_chunk, labels_chunk, head_w):
     """CE sum and token count of one (B, sc, d) hidden chunk."""
-    logits = _dot(h_chunk, head_w).float()                 # (B, sc, V)
+    logits = nn.dot(h_chunk, head_w).float()                 # (B, sc, V)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels_chunk.clamp_min(0).long()[..., None])[..., 0]
@@ -418,7 +454,6 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
     this step's write, with q_pos = ``pos`` and kv_pos = the updated
     ``slot_pos``.
     """
-    _dense_only(cfg)
     cdt = nn.as_dtype(cfg.compute_dtype)
     b = tokens.shape[0]
     t = cache["k"].shape[2]
@@ -432,10 +467,10 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
     rope = rope_cos_sin(q_pos, cfg.head_dim_, cfg.rope_theta)
     cache["slot_pos"][rows] = cur
     for i in range(cfg.n_layers):
-        h, _ = _layer_fn(_layer(params["layers"], i), cfg, h, q_pos, rope,
-                         cache=(cache["k"][i], cache["v"][i],
-                                cache["slot_pos"], rows))
+        h, _, _ = _layer_fn(_layer(params["layers"], i), cfg, h, q_pos,
+                            rope, cache=(cache["k"][i], cache["v"][i],
+                                         cache["slot_pos"], rows))
     h = nn.rmsnorm_apply(params["final_norm"], h)
-    logits = _dot(h, _head_weight(params, cfg, cdt))[:, 0, :]
+    logits = nn.dot(h, _head_weight(params, cfg, cdt))[:, 0, :]
     cache["pos"] = cur + 1
     return logits.float(), cache

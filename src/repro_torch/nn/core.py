@@ -49,6 +49,25 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (batched over leading axes too) in the operands' dtype,
+    bf16 with exact products, fp32 sums and one rounding of the result:
+    the LM's product helper at full width.
+
+    :func:`matmul` takes a bf16 product as ``(a.float() @
+    b.float()).to(bf16)``, which at an LM's width would copy its weights
+    to fp32 on every decode step and run fp32 GEMMs.  On the card bf16
+    ``torch.matmul`` computes the same function (cuBLAS, fp32
+    accumulation, reduced-precision reduction off inside
+    ``models.transformer.xla_rounding``).  On the CPU, where torch's bf16
+    GEMM may round partial sums, :func:`matmul` keeps the reference's
+    rounding; the JEDI paths keep :func:`matmul` everywhere.
+    """
+    if x.is_cuda:
+        return torch.matmul(x, w)
+    return matmul(x, w)
+
+
 def sum_upcast(x: torch.Tensor, dim) -> torch.Tensor:
     """``jnp.sum``: bf16 inputs are summed in fp32, then rounded back."""
     if x.dtype == torch.bfloat16:

@@ -25,6 +25,14 @@ before each decode step, one token per active slot per step, retire at
 ``max_new`` and recycle the slot.  On the card each decode step runs
 kernel B5 once per layer (``models/transformer.py``); nothing here is a
 CUDA graph or ``torch.compile``: every callable launches eagerly.
+
+An MoE LM (moonshot-v1-16b-a3b) serves through the same engine.  Its
+expert capacity comes from the token count of each call: a decode step
+routes the ``slots`` tokens (capacity 8 at 16 slots), a prefill the
+padded rung's tokens, pad tokens included, which compete for expert
+slots after the real ones, as in the reference.  So for an MoE the
+spliced prefill is the padded one, not what an unpadded prefill would
+give; the port pads exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -184,16 +192,27 @@ class LMEngine(ExecutionCore):
 
     def warm(self, buckets=None) -> None:
         """Build (and run once) the prefill ladder AND the decode step,
-        the decode against a throwaway cache, so the live one is
-        untouched (the port's decode writes its cache in place)."""
+        leaving the live cache as it was.  The reference decodes against a
+        throwaway cache; the port's decode writes its cache in place, one
+        row per slot and layer, so it decodes on the live cache and puts
+        back what that step wrote (a throwaway cache would double the
+        cache's memory: 12.9 GB at moonshot-v1-16b-a3b's 16 x 2,048)."""
         for b in buckets if buckets is not None else self.bucket_sizes:
             self.compiled_for(b)(
                 to_device(self.workload.placeholder(b), self.device))
-        throwaway = tfm.init_cache(self.workload.cfg, self.slots,
-                                   self.max_seq, device=self.device)
+        cache = self.cache
+        rows = (torch.arange(self.slots, device=self.device),
+                (cache["pos"] % cache["k"].shape[2]).long())
+        saved = {key: cache[key][:, rows[0], rows[1]].clone()
+                 for key in ("k", "v")}
+        slot_pos, pos = cache["slot_pos"].clone(), cache["pos"]
         toks = torch.zeros((self.slots,), dtype=torch.int32,
                            device=self.device)
-        self.compiled_for("decode")(throwaway, toks)
+        self.compiled_for("decode")(cache, toks)
+        for key, rows_before in saved.items():
+            cache[key][:, rows[0], rows[1]] = rows_before
+        cache["slot_pos"].copy_(slot_pos)
+        cache["pos"] = pos
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -371,6 +390,10 @@ def run_lm_cli(args) -> dict:
         raise ValueError(f"{args.arch!r} is a {arch.family} arch; the serve "
                          "driver is for LM archs")
     cfg = tiny_config(arch.model) if args.tiny else arch.model
+    # The weights are drawn in the compute dtype: the same values the
+    # engine's one cast (``compute_params``) makes from fp32 draws, without
+    # the fp32 copy (moonshot-v1-16b-a3b's would be 112 GB).
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
     dev = resolve_device(args.device)
 
     rng = np.random.RandomState(0)

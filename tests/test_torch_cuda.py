@@ -543,3 +543,35 @@ def test_lm_engine_on_the_card_decodes_through_b5(cuda, monkeypatch):
     monkeypatch.setattr(FDK, "flash_decode_kernel_call", _plain_b5)
     want = serve()
     assert [r.out for r in got["done"]] == [r.out for r in want["done"]]
+
+
+@pytest.mark.cuda
+def test_moe_apply_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda):
+    """``models.moe.moe_apply`` on the card at moonshot's routing (64
+    experts, top-6, capacity factor 1.25; T = 40, so drops bind) in fp32
+    against its CPU run on the same inputs, at 2e-4 of max(1, max |out|);
+    and in bf16 under CUDA's sync debug mode set to "error", so any read
+    back to the host (``.item()``, ``nonzero``, a boolean mask) raises."""
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=64, top_k=6)
+    params = moe.init_moe(prng.key(0), m, 256, 128, device="cpu")
+    x = torch.randn((40, 256), generator=torch.Generator().manual_seed(0))
+    want, want_aux = moe.moe_apply(params, m, x, compute_dtype=torch.float32)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    got, aux = moe.moe_apply(on_card, m, x.to(cuda),
+                             compute_dtype=torch.float32)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 2e-4 * scale
+    assert abs(float(aux) - float(want_aux)) <= 2e-4 * float(want_aux)
+    bf = tree_map(lambda t: t.to(torch.bfloat16), on_card)
+    xb = x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = moe.moe_apply(bf, m, xb, compute_dtype=torch.bfloat16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())

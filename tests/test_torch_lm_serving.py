@@ -72,11 +72,14 @@ def test_tiny_config_and_ladder_match_the_reference():
         prompt_bucket_ladder(0)
 
 
-@pytest.mark.parametrize("arch_id", ["h2o-danube-1.8b", "minicpm-2b"])
+@pytest.mark.parametrize("arch_id", ["h2o-danube-1.8b", "minicpm-2b",
+                                     "moonshot-v1-16b-a3b"])
 def test_lm_engine_reproduces_the_reference_token_streams(arch_id):
     """The prompts of the reference's pinning test (slots 3, max_seq 64,
     max_new 5): the port's greedy streams equal the JAX LMEngine's, for
-    danube's sliding window and minicpm's tied head."""
+    danube's sliding window, minicpm's tied head and moonshot's MoE
+    (64 experts, top-6: the 16-token prefill rung, pad tokens included,
+    and each 3-slot decode step route at a capacity of 8)."""
     jcfg, cfg, jp, tp = _setup(arch_id)
     slots, max_seq, max_new = 3, 64, 5
     rng = np.random.RandomState(0)
@@ -239,6 +242,19 @@ def test_cli_prints_the_reference_serve_report(capsys):
     assert "[health] state=healthy free_slots=3 queue_depth=0" in got
     assert report["prefill_compiles"] == 1 and report["shed"] == 0
     assert all(len(r.out) == 4 for r in report["done"])
+
+
+def test_cli_serves_the_moe_lm_as_the_reference_does(capsys):
+    """``--arch moonshot-v1-16b-a3b --tiny --device cpu`` serves through
+    ``LMEngine`` and prints the reference CLI's report."""
+    argv = ["--arch", "moonshot-v1-16b-a3b", "--tiny", "--requests", "4",
+            "--slots", "2", "--prompt-len", "20", "--max-new", "3",
+            "--max-seq", "32"]
+    jserve.main(argv)
+    want = capsys.readouterr().out
+    report = serve.main(argv + ["--device", "cpu"])
+    assert _report_lines(capsys.readouterr().out) == _report_lines(want)
+    assert len(report["done"]) == 4 and report["shed"] == 0
 
 
 def test_cli_refuses_cuda_without_a_card():

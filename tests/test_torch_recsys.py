@@ -103,7 +103,7 @@ def test_registry_resolves_the_ported_archs():
         assert dataclasses.asdict(treg.get_arch(arch_id).model) \
             == dataclasses.asdict(jreg.get_arch(arch_id).model)
     with pytest.raises(KeyError, match="unknown arch"):
-        treg.get_arch("arctic-480b")
+        treg.get_arch("gcn-cora")
 
 
 @pytest.mark.parametrize("cfg", ["fm", "small"])

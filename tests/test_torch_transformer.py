@@ -215,13 +215,6 @@ def test_init_from_a_seed_draws_the_reference_shapes_and_scales():
     assert abs(std - (2.0 / tc.d_ff) ** 0.5) < 0.1 * (2.0 / tc.d_ff) ** 0.5
 
 
-def test_moe_configs_wait_for_their_roadmap_item():
-    _, tc = _cfgs("dense")
-    moe = dataclasses.replace(tc, moe=tbase.MoEConfig(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttfm.init(0, moe, device="cpu")
-
-
 def test_compute_params_casts_the_weight_matrices_once():
     jc, tc, _, tp = _params("bf16")
     cp = ttfm.compute_params(tp, tc)
