@@ -1,10 +1,10 @@
 """Config schema (counterpart of ``repro.configs.base``).
 
 The port carries the pieces its slices use: :class:`MoEConfig`,
-:class:`TransformerConfig`, :class:`RecsysConfig`, :class:`ShapeSpec`,
-:class:`ArchSpec`, :data:`LM_SHAPES`, :data:`RECSYS_SHAPES` and
-:data:`JEDI_SHAPES`, field for field as the reference declares them.
-The GNN configs come with their slice.
+:class:`TransformerConfig`, :class:`GNNConfig`, :class:`RecsysConfig`,
+:class:`ShapeSpec`, :class:`ArchSpec`, :data:`LM_SHAPES`,
+:data:`GNN_SHAPES`, :data:`RECSYS_SHAPES` and :data:`JEDI_SHAPES`, field
+for field as the reference declares them.
 """
 
 from __future__ import annotations
@@ -59,6 +59,29 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str                    # gcn | pna | meshgraphnet | equiformer_v2 | jedinet
+    n_layers: int
+    d_hidden: int
+    n_classes: int = 16
+    aggregators: tuple = ("mean",)
+    scalers: tuple = ("identity",)
+    mlp_layers: int = 2          # meshgraphnet per-MLP depth
+    l_max: int = 0               # equiformer
+    m_max: int = 0
+    n_heads: int = 1
+    norm: str = "layernorm"
+    activation: str = "relu"
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"   # GNNs here are small; fp32 keeps eSCN stable
+    remat: str = "none"
+    # kept for parity with the reference's scan switch (Python loops here)
+    unroll_scans: bool = False
+    edge_chunk: int = 1 << 20        # equiformer eSCN conv edge-chunk size
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     kind: str = "fm"
@@ -78,8 +101,9 @@ class RecsysConfig:
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str        # train | prefill | decode | recsys_train |
-    #                  recsys_serve | retrieval | jedi_infer | jedi_train
+    kind: str        # train | prefill | decode | full_graph | minibatch |
+    #                  batched_graphs | recsys_train | recsys_serve |
+    #                  retrieval | jedi_infer | jedi_train
     dims: dict
 
     def dim(self, k: str, default=None):
@@ -95,6 +119,20 @@ LM_SHAPES = {
                             dict(seq_len=32768, global_batch=128)),
     "long_500k": ShapeSpec("long_500k", "decode",
                            dict(seq_len=524288, global_batch=1)),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeSpec("full_graph_sm", "full_graph",
+                               dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    "minibatch_lg": ShapeSpec("minibatch_lg", "minibatch",
+                              dict(n_nodes=232965, n_edges=114615892,
+                                   batch_nodes=1024, fanout=(15, 10),
+                                   d_feat=602)),
+    "ogb_products": ShapeSpec("ogb_products", "full_graph",
+                              dict(n_nodes=2449029, n_edges=61859140,
+                                   d_feat=100)),
+    "molecule": ShapeSpec("molecule", "batched_graphs",
+                          dict(n_nodes=30, n_edges=64, batch=128, d_feat=16)),
 }
 
 RECSYS_SHAPES = {
@@ -114,8 +152,8 @@ JEDI_SHAPES = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                  # lm | recsys | jedi
-    model: Any                   # TransformerConfig | RecsysConfig | JediNetConfig
+    family: str                  # lm | gnn | recsys | jedi
+    model: Any                   # TransformerConfig | GNNConfig | RecsysConfig | JediNetConfig
     shapes: dict                 # name -> ShapeSpec
     source: str = ""             # citation tag
     notes: str = ""

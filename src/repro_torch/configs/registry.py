@@ -1,10 +1,7 @@
 """Architecture registry: ``get_arch("<id>")`` -> ArchSpec.
 
-Counterpart of ``repro.configs.registry`` over the archs whose port
-config exists (each module exports an ``ARCH``); the GNN ids join as
-their slice brings an ``ARCH``.  Until then :data:`PENDING_ARCHS` names
-each such id of the reference with its family, so an entry point can say
-which slice it waits for.
+Counterpart of ``repro.configs.registry``: every arch of the reference
+has a port config (each module exports an ``ARCH``).
 """
 
 from __future__ import annotations
@@ -21,20 +18,17 @@ ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    # GNN family
+    "gcn-cora": "repro_torch.configs.gcn_cora",
+    "pna": "repro_torch.configs.pna",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
     # RecSys
     "fm": "repro_torch.configs.fm",
     # the paper's own models
     "jedinet-30p": "repro_torch.configs.jedi_30p",
     "jedinet-50p": "repro_torch.configs.jedi_50p",
     "jedinet-tracks-128": "repro_torch.configs.jedi_tracks_128",
-}
-
-#: the reference's archs that the port has no config for yet -> family
-PENDING_ARCHS = {
-    "gcn-cora": "gnn",
-    "pna": "gnn",
-    "meshgraphnet": "gnn",
-    "equiformer-v2": "gnn",
 }
 
 

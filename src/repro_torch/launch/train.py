@@ -31,14 +31,10 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
-
-#: families whose port waits for a later slice, with its ROADMAP item
-PENDING_FAMILIES = {
-    "gnn": "ROADMAP Queue A item 10 (GNN zoo)",
-}
 
 
 def prefetch(it, depth: int = 2):
@@ -81,21 +77,18 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def make_program(arch_id: str, batch: int, lr: float, device="cuda"):
     """(init_fn, step_fn, batch_iter, optimizer) for a trainable arch;
-    ``init_fn(seed)`` draws the params on ``device``: for a JEDI-net the
-    reference's initial weights at the same seed (``common/prng.py``),
-    for ``fm`` and the LMs the port's own draw on the device (replaying
-    an LM's billions of normals in numpy would take hours)."""
+    ``init_fn(seed)`` draws the params on ``device``: for a JEDI-net and
+    a GNN the reference's initial weights at the same seed
+    (``common/prng.py``), for ``fm`` and the LMs the port's own draw on
+    the device (replaying an LM's billions of normals in numpy would take
+    hours)."""
     from repro_torch.common import prng
-    from repro_torch.configs.registry import PENDING_ARCHS, get_arch
+    from repro_torch.configs.registry import get_arch
     from repro_torch.training import make_optimizer, make_train_step
     from repro_torch.training.schedule import warmup_cosine, wsd
 
-    family = PENDING_ARCHS.get(arch_id) or get_arch(arch_id).family
-    if family in PENDING_FAMILIES:
-        raise NotImplementedError(
-            f"training {arch_id!r} ({family} family) is not ported yet: it "
-            f"waits for {PENDING_FAMILIES[family]}")
     arch = get_arch(arch_id)
+    family = arch.family
     dev = resolve_device(device)
 
     if family == "jedi":
@@ -134,6 +127,37 @@ def make_program(arch_id: str, batch: int, lr: float, device="cuda"):
             lambda seed: fm_lib.init(seed, cfg, device=dev),
             make_train_step(lambda p, b: fm_lib.loss_fn(p, cfg, b), opt),
             ctr_batches(0, batch, cfg.vocab_sizes),
+            opt,
+        )
+    if family == "gnn":
+        from repro_torch.data.graphs import community_graph
+        from repro_torch.launch.steps import _gnn_loss
+        from repro_torch.models.gnn import GNN_MODULES
+        cfg = arch.model
+        mod = GNN_MODULES[cfg.kind]
+        g = community_graph(0, 4096, 16384, 64, n_classes=cfg.n_classes)
+        if cfg.kind in ("meshgraphnet", "equiformer_v2"):
+            rngp = np.random.RandomState(1)
+            g["pos"] = rngp.normal(0, 1, (4096, 3)).astype(np.float32)
+            if cfg.kind == "meshgraphnet":
+                g["y"] = np.tanh(g["pos"]).astype(np.float32)
+            else:
+                g["y"] = np.tanh(g["pos"]).sum(-1).astype(np.float32)
+        opt = make_optimizer("adamw", warmup_cosine(lr, 50, 5000))
+
+        def loss_fn(p, batch):
+            out = mod.apply(p, cfg, batch)
+            return _gnn_loss(cfg.kind, cfg, out, batch)
+
+        def rep(d):
+            while True:
+                yield d
+
+        return (
+            lambda seed: mod.init(prng.key(seed), cfg, 64, cfg.n_classes,
+                                  device=dev),
+            make_train_step(loss_fn, opt),
+            rep(g),
             opt,
         )
     raise ValueError(f"no train program for {arch_id}")

@@ -1,5 +1,5 @@
-"""Minimal NN substrate: linear, MLP and RMSNorm as functions over dict
-pytrees.
+"""Minimal NN substrate: linear, MLP, RMSNorm and LayerNorm as functions
+over dict pytrees.
 
 Port of ``repro.nn.core``.  A Linear is ``{"w": (in, out), "b": (out,)}``
 and is applied as ``x @ w + b`` on the last axis; parameters are stored
@@ -75,7 +75,7 @@ def sum_upcast(x: torch.Tensor, dim) -> torch.Tensor:
     return x.sum(dim)
 
 
-def _normal(source, shape) -> torch.Tensor:
+def normal(source, shape) -> torch.Tensor:
     """Standard normal fp32 draws on the CPU from a ``torch.Generator``, or
     from a key of :mod:`repro_torch.common.prng` (the reference's
     ``jax.random.normal``, each draw within 3 ulps)."""
@@ -99,7 +99,7 @@ def dense_init(generator, in_dim: int, out_dim: int, *,
         std = math.sqrt(2.0 / (in_dim + out_dim))
     else:
         raise ValueError(f"unknown init scale {scale}")
-    w = _normal(generator, (in_dim, out_dim)) * std
+    w = normal(generator, (in_dim, out_dim)) * std
     p = {"w": w.to(dtype=as_dtype(dtype), device=dev)}
     if use_bias:
         p["b"] = torch.zeros((out_dim,), dtype=as_dtype(dtype), device=dev)
@@ -124,14 +124,24 @@ def mlp_dims(in_dim: int, hidden: Sequence[int], out_dim: int) -> list:
     return list(zip(dims[:-1], dims[1:]))
 
 
+def split_source(source, n: int) -> list:
+    """``n`` sources of draws: a ``prng`` key split as
+    ``jax.random.split(key, n)``, or one ``torch.Generator`` (an int seeds
+    a new one) drawn from in turn."""
+    if isinstance(source, torch.Generator):
+        return [source] * n
+    if isinstance(source, int):
+        return [torch.Generator().manual_seed(source)] * n
+    return prng.split(source, n)
+
+
 def mlp_init(generator, in_dim: int, hidden: Sequence[int],
              out_dim: int, *, dtype=torch.float32, scale: str = "fan_in",
              device="cuda"):
     """An MLP's layers from one ``torch.Generator`` drawn in turn, or from
     a ``prng`` key split per layer as the reference splits its key."""
     dims = mlp_dims(in_dim, hidden, out_dim)
-    sources = [generator] * len(dims) if isinstance(
-        generator, torch.Generator) else prng.split(generator, len(dims))
+    sources = split_source(generator, len(dims))
     return {"layers": [dense_init(src, din, dout, dtype=dtype, scale=scale,
                                   device=device)
                        for src, (din, dout) in zip(sources, dims)]}
@@ -161,3 +171,21 @@ def rmsnorm_apply(p, x, *, eps: float = 1e-6):
     var = x32.square().mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim: int, *, dtype=torch.float32, device="cuda"):
+    dev = resolve_device(device)
+    return {"scale": torch.ones((dim,), dtype=as_dtype(dtype), device=dev),
+            "bias": torch.zeros((dim,), dtype=as_dtype(dtype), device=dev)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """LayerNorm over the last axis in fp32, the result in x's dtype.  The
+    variance is the population variance, as ``jnp.var`` takes it
+    (``torch.var`` divides by n - 1 unless given ``correction=0``)."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)

@@ -11,6 +11,8 @@ in fp32.  Two launches must be bitwise equal.  ``chip_smoke.py`` covers
 the same ground at the repo's full widths.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -575,3 +577,59 @@ def test_moe_apply_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pna", "equiformer_v2"])
+def test_gnn_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda, kind):
+    """A narrow pna (2 layers x 16, its 12 aggregated views) and
+    equiformer-v2 (2 layers, C = 16, l_max 6, m_max 2, 2 heads) on a
+    random graph: the forward and the gradients of a scalar loss on the
+    card against the CPU's at 2e-4 of max(1, scale) (each gradient leaf
+    floored at 1e-4 of the tree's largest), then one forward and backward
+    under CUDA's sync debug mode "error" (after a warm one, which puts
+    the SO(3) constants on the card)."""
+    from repro_torch.common import prng
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.gnn import GNN_MODULES
+    arch = {"pna": "pna", "equiformer_v2": "equiformer-v2"}[kind]
+    full = get_arch(arch).model
+    cfg = dataclasses.replace(full, n_layers=2, d_hidden=16,
+                              n_heads=min(full.n_heads, 2))
+    mod = GNN_MODULES[kind]
+    rng = np.random.RandomState(0)
+    n, e, d = 200, 1200, 8
+    graph = {
+        "x": torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)),
+        "pos": torch.from_numpy(rng.normal(0, 1, (n, 3)).astype(np.float32)),
+        "senders": torch.from_numpy(rng.randint(0, n, e).astype(np.int32)),
+        "receivers": torch.from_numpy(rng.randint(0, n, e).astype(np.int32)),
+    }
+    params = mod.init(prng.key(0), cfg, d, cfg.n_classes, device="cpu")
+
+    def fwd_bwd(p, g):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(p)]
+        out = mod.apply(tree_unflatten(p, leaves), cfg, g)
+        return out, torch.autograd.grad(out.square().mean(), leaves)
+
+    want, want_g = fwd_bwd(params, graph)
+    want = want.detach()
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    g_card = {k: v.to(cuda) for k, v in graph.items()}
+    got, got_g = fwd_bwd(on_card, g_card)
+    got = got.detach()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 2e-4 * scale
+    floor = 1e-4 * max(float(g.abs().max()) for g in want_g)
+    for a, b in zip(want_g, got_g):
+        s = max(float(a.abs().max()), floor)
+        assert float((b.cpu() - a).abs().max()) <= 2e-4 * s
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, grads = fwd_bwd(on_card, g_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out).all())

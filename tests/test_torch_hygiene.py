@@ -59,7 +59,12 @@ def test_port_has_modules_to_check():
                      "configs/phi3_medium_14b.py", "nn/rope.py",
                      "nn/attention.py", "models/transformer.py",
                      "serving/lm.py", "launch/serve.py",
-                     "examples/serve_lm.py"):
+                     "examples/serve_lm.py", "models/gnn/segment_ops.py",
+                     "models/gnn/gcn.py", "models/gnn/pna.py",
+                     "models/gnn/meshgraphnet.py", "models/gnn/so3.py",
+                     "models/gnn/equiformer_v2.py", "data/graphs.py",
+                     "data/neighbor_sampler.py", "launch/steps.py",
+                     "configs/gcn_cora.py", "configs/equiformer_v2.py"):
         assert required in names
 
 

@@ -102,8 +102,12 @@ def test_registry_resolves_the_ported_archs():
     for arch_id in treg.ARCH_MODULES:
         assert dataclasses.asdict(treg.get_arch(arch_id).model) \
             == dataclasses.asdict(jreg.get_arch(arch_id).model)
+    for arch_id in ("gcn-cora", "pna", "meshgraphnet", "equiformer-v2"):
+        t, j = treg.get_arch(arch_id), jreg.get_arch(arch_id)
+        assert t.family == j.family == "gnn"
+        assert dataclasses.asdict(t.model) == dataclasses.asdict(j.model)
     with pytest.raises(KeyError, match="unknown arch"):
-        treg.get_arch("gcn-cora")
+        treg.get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("cfg", ["fm", "small"])
