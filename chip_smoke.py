@@ -217,11 +217,38 @@ non-zero on any failure:
      through the program's loss and ``make_train_step``: ms per step and
      peak memory.
 
+11. the multi-device layer on a world-size-1 NCCL group over the card
+   (the backend a multi-GPU deployment uses; NCCL takes one rank per
+   card, so no collective here crosses a link):
+   * 11a, jedinet-30p (full width, B=1,024) takes 5 AdamW steps on a
+     (1, 1) ``("data", "model")`` DeviceMesh, its state placed by
+     ``train_state_shardings`` and its batch by ``batch_shardings``
+     inside ``axis_rules``: params, loss and grad norm against the
+     unsharded steps on the card at 1e-4; then h2o-danube-1.8b cut to 2
+     layers at full width in fp32, one Adafactor step with its
+     ``param_shardings`` and the model's ``constrain`` calls active,
+     against the unsharded step at 1e-4 of scale; ms per step;
+   * 11b, ``ef_compressed_psum`` on the group (int32 sums) against its
+     quantize / dequantize, bitwise; ``a2a_moe`` at one
+     moonshot-v1-16b-a3b MoE layer at full width (64 experts, top-6,
+     d_model 2,048, 1,024 tokens, fp32, capacity factor E/k) against
+     ``moe_apply`` at 1e-5 of scale; ms of each;
+   * 11c, ``fused_full`` at jedi_30p through ``ResilientEngine`` with
+     ``shards=[cuda, cuda]`` (two shards on the one card): every
+     256-event batch in bucket 256, B1 launched twice per served batch,
+     no demotion and no counter, the logits against the one-shard
+     engine's on the same batches (bitwise or not, printed); batches/s
+     with 1 and 2 shards; these B1 launches join B1's count
+     (``launches_by_phase["multidevice"]``);
+   * 11d, 11a's sharded state saved and restored with
+     ``restore(shardings=...)`` onto a 1-D ``("data",)`` mesh, bitwise.
+
 Before the last line it prints a ``training: {...}`` line with phase
 6's numbers, an ``lm: {...}`` line with phase 7's, a ``moe: {...}``
 line with phase 8's, an ``lm_training: {...}`` line with phase 9's, a
-``gnn: {...}`` line with phase 10's and one JSON object with each
-kernel's numbers; the last line is ``{"ok": true, "device": {...}}``.
+``gnn: {...}`` line with phase 10's, a ``multidevice: {...}`` line with
+phase 11's and one JSON object with each kernel's numbers; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2857,6 +2884,347 @@ def gnn_zoo(dev, card: str, kernels) -> dict:
     return out
 
 
+# ---- phase 11: multi-device --------------------------------------------------
+
+#: 11a: a sharded step against the unsharded one on the same card, at the
+#: reference's bar (tests/test_multidevice.py), of scale (at least 1).
+TOL_SHARDED = 1e-4
+#: 11b: a2a_moe against the global moe_apply with ample capacity, of scale.
+TOL_A2A = 1e-5
+#: 11a's sizes: jedinet-30p's batch and AdamW steps (the first, which
+#: fills DTensor's sharding caches, is not timed); danube's cut and batch.
+MD_JEDI_BATCH, MD_JEDI_STEPS = 1024, 5
+MD_LM_LAYERS, MD_LM_BATCH, MD_LM_SEQ = 2, 2, 256
+#: 11b: one moonshot-v1-16b-a3b MoE layer's tokens; 11c: served batches.
+MD_MOE_TOKENS, MD_STREAM = 1024, 40
+
+
+def _wall_ms(fn, dev, reps: int = 3) -> float:
+    """ms per call of ``fn()`` on the host clock around ``reps`` calls
+    that end in a synchronise (after one warm-up call): the collectives
+    and DTensor's dispatch run on the host."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _tree_err(got, want) -> float:
+    """Max |got - want| over the leaves, over the largest |want| (>= 1)."""
+    from repro_torch.common.tree import tree_leaves
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(tree_leaves(got), tree_leaves(want)))
+    scale = max([1.0] + [float(w.float().abs().max())
+                         for w in tree_leaves(want)])
+    return err / scale
+
+
+def multidevice(dev, card: str, kernels, b1: Kernel) -> dict:
+    """Phase 11: the multi-device layer on a world-size-1 NCCL group over
+    the card (``gloo`` on the CPU): sharded train steps on a (1, 1)
+    ``("data", "model")`` DeviceMesh (11a), the int8 error-feedback
+    all-reduce and the all-to-all MoE dispatch (11b), the data-parallel
+    trigger engine with two shards on the card (11c) and elastic restore
+    onto a 1-D mesh (11d).  Returns B1's 11c launches (counts set to 0
+    just before each engine's run and read just after) and the phase's
+    numbers.  The group is destroyed on the way out, on failure too."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import h2o_danube_1_8b, jedi_30p, \
+        moonshot_v1_16b_a3b
+    from repro_torch.core import interaction_net as inet
+    from repro_torch.core import paths
+    from repro_torch.data.jets import make_jets
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.moe_dispatch import a2a_moe
+    from repro_torch.serving.resilient import ResilientEngine
+    from repro_torch.serving.trigger import make_stream
+    from repro_torch.training import grad_compression as gc
+    from repro_torch.training import init_state, make_optimizer, \
+        make_train_step
+    from repro_torch.training.schedule import constant
+
+    def full(tree):
+        return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                        else t, tree)
+
+    def timed_steps(step, state, batch, n):
+        """``n`` steps; (state, metrics, ms per step over steps 2..n)."""
+        state, m = step(state, batch)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n - 1):
+            state, m = step(state, batch)
+        sync()
+        return state, m, (time.perf_counter() - t0) / max(n - 1, 1) * 1e3
+
+    out: dict = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_md_")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/store", world_size=1, rank=0,
+        timeout=timedelta(seconds=120),
+        **({"device_id": torch.device("cuda", 0)} if dev.type == "cuda"
+           else {}))
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        # -- a. sharded train steps ------------------------------------------
+        cfg = jedi_30p.MODEL
+        print(f"== 11a. jedinet-30p AdamW steps on a (1, 1) (data, model) "
+              f"DeviceMesh over a world-size-1 {backend} group "
+              f"(B={MD_JEDI_BATCH})")
+        opt = make_optimizer("adamw", constant(1e-3))
+        state = init_state(0, lambda s: inet.init(s, cfg, device=dev), opt)
+        x, y = make_jets(np.random.RandomState(5), MD_JEDI_BATCH,
+                         cfg.n_objects)
+        batch = {"x": torch.from_numpy(x).to(dev),
+                 "y": torch.from_numpy(y).to(dev)}
+        step = make_train_step(lambda p, b: inet.loss_fn(p, cfg, b), opt)
+        ref, ref_m, ref_ms = timed_steps(
+            step, tree_map(torch.clone, state), batch, MD_JEDI_STEPS)
+        st_sh = shd.train_state_shardings(state, mesh)
+        sharded = shd.distribute(state, st_sh)
+        b_sh = shd.distribute(batch, shd.batch_shardings(
+            batch, mesh, {"x": ("batch", None, None), "y": ("batch",)}))
+        with shd.axis_rules(mesh):
+            sharded, m, sh_ms = timed_steps(step, sharded, b_sh,
+                                            MD_JEDI_STEPS)
+        perr = _tree_err(full(sharded["params"]), ref["params"])
+        lerr = abs(float(m["loss"].full_tensor()) - float(ref_m["loss"]))
+        gerr = abs(float(m["grad_norm"].full_tensor())
+                   - float(ref_m["grad_norm"])) / float(ref_m["grad_norm"])
+        check(all(isinstance(t, DTensor)
+                  for t in tree_leaves(sharded["params"]))
+              and perr <= TOL_SHARDED and lerr <= TOL_SHARDED
+              and gerr <= TOL_SHARDED,
+              f"jedinet-30p sharded vs unsharded after {MD_JEDI_STEPS} AdamW "
+              f"steps: params {perr:.2e} of scale, loss {lerr:.2e}, grad "
+              f"norm {gerr:.2e} relative (tol {TOL_SHARDED:g})")
+        print(f"  jedinet-30p B={MD_JEDI_BATCH}: {sh_ms:.3f} ms/step sharded "
+              f"(DTensor), {ref_ms:.3f} ms/step unsharded (host clock, steps "
+              f"2-{MD_JEDI_STEPS})  [{card}]")
+        out["jedi_30p"] = {"batch": MD_JEDI_BATCH, "steps": MD_JEDI_STEPS,
+                           "ms_per_step_sharded": sh_ms,
+                           "ms_per_step_unsharded": ref_ms,
+                           "params_err": perr, "loss_err": lerr,
+                           "grad_norm_err": gerr}
+        jedi_state = sharded
+
+        lcfg = dataclasses.replace(h2o_danube_1_8b.MODEL,
+                                   n_layers=MD_LM_LAYERS,
+                                   compute_dtype="float32", remat="none")
+        print(f"== 11a. h2o-danube-1.8b cut to {MD_LM_LAYERS} layers at full "
+              f"width, fp32, one Adafactor step with its param shardings "
+              f"and constrain active ({MD_LM_BATCH} x {MD_LM_SEQ} tokens)")
+        lopt = make_optimizer("adafactor", constant(1e-3))
+        lstate = init_state(0, lambda s: tfm.init(s, lcfg, device=dev), lopt)
+        toks = torch.from_numpy(np.random.RandomState(6).randint(
+            0, lcfg.vocab_size, (MD_LM_BATCH, MD_LM_SEQ)).astype(np.int32))
+        lbatch = {"tokens": toks.to(dev),
+                  "labels": torch.roll(toks, -1, 1).to(dev)}
+        lstep = make_train_step(lambda p, b: tfm.loss_fn(p, lcfg, b), lopt)
+        with tfm.xla_rounding():
+            lref_ms = _wall_ms(lambda: lstep(tree_map(torch.clone, lstate),
+                                             lbatch), dev, reps=1)
+            lref, lref_m = lstep(tree_map(torch.clone, lstate), lbatch)
+        t0 = time.perf_counter()
+        lsh = shd.distribute(lstate, shd.train_state_shardings(lstate, mesh))
+        lb = shd.distribute(lbatch, shd.batch_shardings(
+            lbatch, mesh, {"tokens": ("batch", None),
+                           "labels": ("batch", None)}))
+        with tfm.xla_rounding(), shd.axis_rules(mesh):
+            lsh, lm_m = lstep(lsh, lb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        lsh_ms = (time.perf_counter() - t0) * 1e3
+        lperr = _tree_err(full(lsh["params"]), lref["params"])
+        llerr = abs(float(lm_m["loss"].full_tensor())
+                    - float(lref_m["loss"])) / float(lref_m["loss"])
+        wq = lsh["params"]["layers"]["attn"]["wq"]["w"]
+        check(tuple(shd.NamedSharding(mesh, shd.P(None, "data", "model"))
+                    .placements) == tuple(wq.placements)
+              and lperr <= TOL_SHARDED and llerr <= TOL_SHARDED,
+              f"danube {MD_LM_LAYERS} layers sharded vs unsharded step: "
+              f"params {lperr:.2e} of scale, loss {llerr:.2e} relative "
+              f"(tol {TOL_SHARDED:g}); wq placements {tuple(wq.placements)}")
+        print(f"  danube {MD_LM_LAYERS} layers: first sharded step "
+              f"{lsh_ms:.1f} ms (placement and DTensor's sharding "
+              f"propagation included), unsharded {lref_ms:.1f} ms (host "
+              f"clock, after a warm-up step)  [{card}]")
+        out["danube_2_layers"] = {
+            "tokens": [MD_LM_BATCH, MD_LM_SEQ],
+            "first_step_ms_sharded": lsh_ms, "step_ms_unsharded": lref_ms,
+            "params_err": lperr, "loss_err": llerr}
+        del lstate, lsh, lref, lb, lbatch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- b. the int8 all-reduce and the all-to-all dispatch ---------------
+        print(f"== 11b. ef_compressed_psum on the {backend} group (int32 "
+              "sums)")
+        gen = torch.Generator(device=dev).manual_seed(7)
+        grads = {"w": torch.randn((2560, 2560), generator=gen, device=dev),
+                 "b": [torch.randn((2560,), generator=gen, device=dev)
+                       * 1e-3]}
+        resid = tree_map(torch.zeros_like, grads)
+        mean, new_r = gc.ef_compressed_psum(grads, resid)
+        ok = True
+        for g, mn, r in zip(tree_leaves(grads), tree_leaves(mean),
+                            tree_leaves(new_r)):
+            q, s = gc.quantize(g)
+            deq = gc.dequantize(q, s)
+            ok = ok and torch.equal(mn, deq) and torch.equal(r, g - deq)
+        ef_ms = _wall_ms(lambda: gc.ef_compressed_psum(grads, resid), dev)
+        check(ok, "ef_compressed_psum over one rank: the mean is the "
+              "dequantized int8 value and the residual the rest, bitwise")
+        n_values = sum(t.numel() for t in tree_leaves(grads))
+        print(f"  ef_compressed_psum over {n_values:,} fp32 values: "
+              f"{ef_ms:.3f} ms (host clock)  [{card}]")
+        out["ef_psum_ms"] = ef_ms
+
+        mcfg = moonshot_v1_16b_a3b.MODEL
+        moe = dataclasses.replace(
+            mcfg.moe, capacity_factor=mcfg.moe.n_experts / mcfg.moe.top_k)
+        print(f"== 11b. a2a_moe at one moonshot-v1-16b-a3b layer "
+              f"({moe.n_experts} experts, top-{moe.top_k}, d_model "
+              f"{mcfg.d_model}, T={MD_MOE_TOKENS}, fp32, capacity factor "
+              "E/k)")
+        params = {"router": {}, "experts": {}}
+        for (group, name), (_, shape, std) in moe_lib.moe_shapes(
+                moe, mcfg.d_model, mcfg.d_ff).items():
+            params[group][name] = torch.randn(
+                shape, generator=gen, device=dev) * std
+        xt = torch.randn((MD_MOE_TOKENS, mcfg.d_model), generator=gen,
+                         device=dev)
+        want, _ = moe_lib.moe_apply(params, moe, xt,
+                                    compute_dtype=torch.float32)
+        got = a2a_moe(xt, params, moe)
+        err, rel = err_of(got, want)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and rel <= TOL_A2A,
+              f"a2a_moe vs moe_apply: max|err| {err:.3e} ({rel:.2e} of "
+              f"scale, tol {TOL_A2A:g})")
+        a2a_ms = _wall_ms(lambda: a2a_moe(xt, params, moe), dev)
+        apply_ms = _wall_ms(lambda: moe_lib.moe_apply(
+            params, moe, xt, compute_dtype=torch.float32), dev)
+        print(f"  a2a_moe {a2a_ms:.3f} ms, moe_apply {apply_ms:.3f} ms (host "
+              f"clock, one rank: no collective crosses a link)  [{card}]")
+        out["moonshot_moe_layer"] = {"tokens": MD_MOE_TOKENS,
+                                     "a2a_moe_ms": a2a_ms,
+                                     "moe_apply_ms": apply_ms,
+                                     "max_abs_err": err, "rel_err": rel}
+        del params, xt, want, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- c. the data-parallel trigger engine ---------------------------
+        shards = [dev, dev]
+        print(f"== 11c. fused_full through ResilientEngine with shards="
+              f"{[str(s) for s in shards]}, {MD_STREAM} batches of 256")
+        p30 = inet.init(0, cfg, scale="lecun", device=dev)
+        rng = np.random.RandomState(8)
+        stream = make_stream(rng, MD_STREAM, 256, cfg.n_objects,
+                             cfg.n_features)
+        requests = make_stream(rng, 4, 256, cfg.n_objects, cfg.n_features)
+        # B1 runs at 128 rows a launch here: each served batch is also held
+        # against the plain forward on the same events
+        plain = [inet.forward_sr_split(p30, cfg, torch.from_numpy(r).to(dev))
+                 for r in requests]
+        tol = paths.get("fused_full").tolerance
+        served, rates, plain_rel, b1_launches = {}, {}, {}, 0
+        for n in (2, 1):
+            eng = ResilientEngine(p30, cfg, forward="fused_full",
+                                  device=dev, shards=[dev] * n,
+                                  max_batch=256)
+            zero_counts(kernels)
+            res = eng.run_stream(stream, warmup=2)
+            outs = [eng.infer(r) for r in requests]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = b1.counter.launches
+            b1_launches += launches
+            n_batches = len(stream) + len(requests)
+            rates[n] = len(res["latencies"]) / res["wall_s"]
+            served[n] = outs
+            h = eng.health()
+            rel = max(err_of(torch.from_numpy(o).to(dev), want)[1]
+                      for o, want in zip(outs, plain))
+            plain_rel[n] = rel
+            check(eng.n_shards == n and res["bucket"] == 256
+                  and eng.active_path(256) == "fused_full"
+                  and not h["counters"]
+                  and (dev.type != "cuda" or launches == n * n_batches)
+                  and all(np.isfinite(o).all() and o.shape == (
+                      256, cfg.n_targets) for o in outs)
+                  and rel <= tol,
+                  f"{n} shard(s): bucket {res['bucket']}, path "
+                  f"{eng.active_path(256)}, counters "
+                  f"{h['counters'] or 'none'},"
+                  f" {b1.name} launches {launches} == {n} x {n_batches} "
+                  f"served batches; served logits vs plain "
+                  f"forward_sr_split {rel:.2e} of scale (tol {tol:g})")
+        bitwise = all(np.array_equal(a, b) for a, b in zip(served[1],
+                                                            served[2]))
+        gap = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                  for a, b in zip(served[2], served[1]))
+        check(gap <= TOL_FP32,
+              f"2-shard logits vs 1-shard on the same batches: {gap:.2e} of "
+              f"scale (tol {TOL_FP32:g}), bitwise equal: {bitwise}")
+        print(f"  fused_full jedi_30p: {rates[2]:.1f} batches/s with 2 shards"
+              f" on one card, {rates[1]:.1f} with 1 (run_stream, "
+              f"{MD_STREAM - 2} timed batches)  [{card}]")
+        out["trigger_dp"] = {"batches_per_s": {"1": rates[1], "2": rates[2]},
+                             "bitwise_equal": bitwise, "rel_gap": gap,
+                             "rel_err_vs_plain": {"1": plain_rel[1],
+                                                  "2": plain_rel[2]},
+                             "b1_launches": b1_launches}
+
+        # -- d. elastic restore ---------------------------------------------
+        print("== 11d. 11a's sharded jedinet state saved, restored onto a 1-D "
+              "(data,) mesh")
+        cm = CheckpointManager(f"{tmp}/ckpt")
+        cm.save(MD_JEDI_STEPS, jedi_state)
+        host_mesh = make_host_mesh(dev.type)
+        saved = full(jedi_state)
+        restored, step = cm.restore(
+            device=dev, shardings=shd.train_state_shardings(saved, host_mesh))
+        same = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+            tree_leaves(restored["params"]), tree_leaves(saved["params"])))
+        check(same and step == MD_JEDI_STEPS
+              and int(restored["step"].full_tensor()) == MD_JEDI_STEPS
+              and all(t.device_mesh.mesh_dim_names == ("data",)
+                      for t in tree_leaves(restored["params"])),
+              f"restored at step {step} onto the (data,) mesh, params "
+              f"bitwise equal to the saved ones: {same}")
+    finally:
+        dist.destroy_process_group()
+    b1_total = out["trigger_dp"].pop("b1_launches")
+    out["b1_launches"] = b1_total
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3277,6 +3645,13 @@ def main() -> int:
     # ---- 10. the GNN zoo ----------------------------------------------------
     gnn = gnn_zoo(dev, card, kernels)
     print("gnn: " + json.dumps(gnn))
+    torch.cuda.empty_cache()
+
+    # ---- 11. multi-device -----------------------------------------------------
+    md = multidevice(dev, card, kernels, b1)
+    rows[0]["launches_by_phase"]["multidevice"] = md.pop("b1_launches")
+    rows[0]["launches"] += rows[0]["launches_by_phase"]["multidevice"]
+    print("multidevice: " + json.dumps(md))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

@@ -18,9 +18,17 @@ a checkpoint written by either package is read by the other:
   non-daemon thread; ``wait()`` joins it.
 * **Retention** — ``keep_last`` prunes old steps after a successful save.
 
-``restore`` places the leaves on one device.  The reference's
-``shardings`` (elastic restore onto a mesh) waits for the multi-device
-slice.
+* **Sharded state** — a ``DTensor`` leaf is written as its full array,
+  in the same layout: every rank joins its gather (``full_tensor``, a
+  collective), rank 0 of the default group alone copies it to host
+  memory and writes, and the others wait at a barrier (``save``;
+  ``save_async`` takes unsharded trees only).
+* **Elastic restore** — ``restore(shardings=...)`` places each leaf with
+  ``distribute_tensor`` on its sharding's mesh and placements (a
+  ``parallel.sharding.NamedSharding``; ``None`` keeps the leaf whole),
+  and the mesh may differ in size and shape from the one that saved:
+  checkpoints are the unit of elasticity.  Without ``shardings`` the
+  leaves land whole on ``device``.
 """
 
 from __future__ import annotations
@@ -33,16 +41,22 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
-from repro_torch.common.tree import path_map
+from repro_torch.common.tree import path_map, tree_leaves
+from repro_torch.parallel.sharding import distribute
 
 #: numpy has no bf16: such a leaf travels as its raw 2-byte words
 _BF16_WORDS = np.dtype("V2")
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array that shares no memory with the leaf."""
+    """A leaf as a numpy array that shares no memory with the leaf (a
+    ``DTensor`` gathered whole: a collective every rank must join)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -129,9 +143,20 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def save(self, step: int, tree: Any):
-        self._write(step, path_map(lambda _p, leaf: _to_host(leaf), tree))
+        sharded = _sharded(tree)
+        if not sharded or dist.get_rank() == 0:
+            self._write(step, path_map(lambda _p, leaf: _to_host(leaf), tree))
+        else:
+            # join every leaf's gather, in the writer's order, and keep
+            # no host copy: only rank 0 holds the whole state in memory
+            path_map(lambda _p, leaf: _join_gather(leaf), tree)
+        if sharded:
+            dist.barrier()
 
     def save_async(self, step: int, tree: Any):
+        if _sharded(tree):
+            raise ValueError("save_async takes an unsharded tree; save a "
+                             "tree of DTensors with save()")
         self.wait()
         host = path_map(lambda _p, leaf: _to_host(leaf), tree)
         # NON-daemon: on a crash (injected failure, unhandled exception) the
@@ -161,9 +186,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *, device="cuda"):
+    def restore(self, step: Optional[int] = None, *, device="cuda",
+                shardings=None):
         """Load a checkpoint (the latest by default) as a tree of tensors
-        on ``device``; returns ``(tree, step)``."""
+        on ``device``; returns ``(tree, step)``.  ``shardings``, a tree of
+        ``NamedSharding`` or ``None`` leaves up to the checkpoint's leaves,
+        places each leaf on its mesh (elastic restore onto the current
+        mesh); ``device`` must then be the meshes' device type."""
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -175,4 +204,17 @@ class CheckpointManager:
         for path, meta in manifest["leaves"].items():
             arr = np.load(os.path.join(d, meta["file"]))
             payload[path] = _to_tensor(arr, meta["dtype"], dev)
-        return _unflatten(manifest, payload), step
+        tree = _unflatten(manifest, payload)
+        if shardings is not None:
+            tree = distribute(tree, shardings)
+        return tree, step
+
+
+def _join_gather(leaf):
+    if isinstance(leaf, DTensor):
+        leaf.full_tensor()
+    return None
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for leaf in tree_leaves(tree))

@@ -4,8 +4,9 @@
 The port carries the GNN family's helpers that the train program uses:
 the feature width of a shape, which kinds need node positions, and the
 family's loss on a model's output.  The reference's cell programs over a
-device mesh (``CellProgram``, the dry-run's abstract inputs and
-shardings) wait for the multi-device slice (ROADMAP Queue A item 11).
+device mesh (``CellProgram``, the dry-run's abstract inputs) wait for
+ROADMAP Queue A item 11b; the shardings they place their state by are
+in :mod:`repro_torch.parallel.sharding`.
 """
 
 from __future__ import annotations

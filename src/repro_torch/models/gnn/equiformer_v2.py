@@ -34,6 +34,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn import segment_ops as seg
 from repro_torch.models.gnn import so3
 from repro_torch.nn import core as nn
+from repro_torch.parallel.sharding import constrain
 
 N_RBF = 8
 
@@ -198,7 +199,9 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
             y = conv_chunk(s[sl], dirs[sl], gates_all[sl], alpha[sl])
             agg = agg.index_add(0, r[sl], y)
     else:
-        agg = seg.scatter_sum(conv_chunk(s, dirs, gates_all, alpha), r, n)
+        y = constrain(conv_chunk(s, dirs, gates_all, alpha), "edges", None,
+                      None)
+        agg = seg.scatter_sum(y, r, n)
 
     # ---- node update ----
     agg = _per_l_mix(lp["proj"]["w"], cfg.l_max, agg)
@@ -212,7 +215,7 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
     hl = _per_l_mix(lp["ffn_mix"]["w"], cfg.l_max, h)
     upd = torch.cat([f0[:, None, :],
                      hl[:, 1:, :] * _expand_l(gate, cfg.l_max)], 1)
-    return h + upd
+    return constrain(h + upd, "nodes", None, None)
 
 
 def _expand_l(per_l, l_max: int):

@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn import segment_ops as seg
 from repro_torch.nn import core as nn
+from repro_torch.parallel.sharding import constrain
 
 
 def init(key_or_seed, cfg: GNNConfig, d_in: int, n_out: int, *,
@@ -49,7 +50,10 @@ def apply(params, cfg: GNNConfig, graph):
     h = x
     for i, lp in enumerate(params["gnn_layers"]):
         h = nn.dense_apply(lp, h)                       # project first
+        h = constrain(h, "nodes", None)
         msgs = seg.gather(h, s) * w_edge.to(h.dtype)
+        msgs = constrain(msgs, "edges", None)
         agg = seg.scatter_sum(msgs, r, n) + h * self_w.to(h.dtype)
         h = act(agg) if i < len(params["gnn_layers"]) - 1 else agg
+        h = constrain(h, "nodes", None)
     return h

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn import segment_ops as seg
 from repro_torch.nn import core as nn
+from repro_torch.parallel.sharding import constrain
 
 
 def _mlp_init(key, d_in, d_hidden, d_out, n_layers, *, with_ln=True,
@@ -90,10 +91,14 @@ def apply(params, cfg: GNNConfig, graph):
 
     h = _mlp_apply(params["gnn_node_enc"], graph["x"], act)
     e = _mlp_apply(params["gnn_edge_enc"], edge_geometry(graph), act)
+    h = constrain(h, "nodes", None)
+    e = constrain(e, "edges", None)
 
     for blk in params["gnn_blocks"]:
         hs, hr = seg.gather(h, s), seg.gather(h, r)
         e = e + _mlp_apply(blk["edge"], torch.cat([e, hs, hr], -1), act)
+        e = constrain(e, "edges", None)
         agg = seg.scatter_sum(e, r, n)
         h = h + _mlp_apply(blk["node"], torch.cat([h, agg], -1), act)
+        h = constrain(h, "nodes", None)
     return _mlp_apply(params["gnn_decoder"], h, act)

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn import segment_ops as seg
 from repro_torch.nn import core as nn
+from repro_torch.parallel.sharding import constrain
 
 SCALERS = ("identity", "amplification", "attenuation")
 
@@ -61,9 +62,11 @@ def apply(params, cfg: GNNConfig, graph):
     delta = logdeg.mean().clamp_min(1e-5)
 
     h = act(nn.dense_apply(params["gnn_encoder"], x))
+    h = constrain(h, "nodes", None)
     for lp in params["gnn_layers"]:
         hs, hr = seg.gather(h, s), seg.gather(h, r)
         m = act(nn.dense_apply(lp["msg"], torch.cat([hs, hr], -1)))
+        m = constrain(m, "edges", None)
         aggs = []
         for agg_name in cfg.aggregators:
             a = seg.SCATTER[agg_name](m, r, n)
@@ -71,4 +74,5 @@ def apply(params, cfg: GNNConfig, graph):
                 aggs.append(_scale(a, scaler, logdeg, delta))
         z = torch.cat(aggs, -1)
         h = h + act(nn.dense_apply(lp["post"], z))
+        h = constrain(h, "nodes", None)
     return nn.dense_apply(params["gnn_decoder"], h)

@@ -27,7 +27,11 @@ token count of the call (a shape), so a decode step at 16 slots computes
 512 expert rows for its 96 assignments, and a padded prefill's pad
 tokens enter the MoE and compete for slots after the real tokens, as in
 the reference.  The products go through :func:`repro_torch.nn.core.dot`
-(the reference leaves them to XLA; the MoE has no Pallas kernel).
+(the reference leaves them to XLA; the MoE has no Pallas kernel).  The
+reference's six sharding constraints are in place
+(:func:`repro_torch.parallel.sharding.constrain`): no-ops outside an
+``axis_rules`` context.  The all-to-all dispatch across ranks is
+``parallel/moe_dispatch.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch import resolve_device
 from repro_torch.common import prng
 from repro_torch.configs.base import MoEConfig
 from repro_torch.nn import core as nn
+from repro_torch.parallel.sharding import constrain
 
 
 def moe_shapes(moe: MoEConfig, d_model: int, d_ff: int) -> dict:
@@ -124,18 +129,22 @@ def moe_apply(params, moe: MoEConfig, x, *, compute_dtype=torch.bfloat16,
 
     # --- sort-based dispatch ---
     slot = dispatch_slots(expert_ids, moe, c)                  # (T*k,)
-    buf = xc.new_zeros((e * c + 1, d)).index_copy(
-        0, slot, xc[:, None].expand(t, k, d).reshape(t * k, d))
-    h = buf[:e * c].view(e, c, d)
+    dispatched = constrain(xc[:, None].expand(t, k, d).reshape(t * k, d),
+                           "tokens", None)
+    buf = xc.new_zeros((e * c + 1, d)).index_copy(0, slot, dispatched)
+    h = constrain(buf[:e * c].view(e, c, d), "expert", "expert_slot", None)
 
     # --- per-expert SwiGLU ---
     w = params["experts"]
     hg = nn.dot(h, w["w_gate"].to(cdt))
     hi = nn.dot(h, w["w_in"].to(cdt))
-    y = nn.dot(act(hg) * hi, w["w_out"].to(cdt))               # (E, c, d)
+    hmid = constrain(act(hg) * hi, "expert", "expert_slot", "mlp")
+    y = nn.dot(hmid, w["w_out"].to(cdt))                       # (E, c, d)
+    y = constrain(y, "expert", "expert_slot", None)
 
     # --- combine: the sentinel row gathers zeros ---
     y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
-    per_assign = y_flat[slot].view(t, k, d)
+    per_assign = constrain(y_flat[slot], "tokens", None).view(t, k, d)
     out = (per_assign * gates.to(y.dtype)[..., None]).float().sum(1)
+    out = constrain(out, "tokens", None)
     return out.to(cdt), aux

@@ -18,8 +18,10 @@ other id outside ``[0, rows)`` gives a row of NaN.  ``torch`` indexing
 would raise instead, and on the card a device-side assert would end the
 context, so :func:`take_rows` clamps the index and fills the row.
 
-The reference's ``constrain`` (sharding hints) has no counterpart until
-the multi-device slice: one H100 holds the whole ``fm`` table.
+The reference's sharding hints are in place
+(:func:`repro_torch.parallel.sharding.constrain`, the same logical axes):
+no-ops outside an ``axis_rules`` context, where one H100 holds the whole
+``fm`` table.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.fm_interaction import ops as fm_ops
 from repro_torch.nn.core import as_dtype
+from repro_torch.parallel.sharding import constrain
 
 
 def field_offsets(cfg: RecsysConfig) -> np.ndarray:
@@ -158,6 +161,7 @@ def forward(params, cfg: RecsysConfig, ids, *, use_kernel: bool = False):
     """ids: (B, F) -> logits (B,) fp32.  ``use_kernel`` takes the pairwise
     term through kernel B4 (one launch per call on the card)."""
     v, w = lookup(params, cfg, ids)
+    v = constrain(v, "batch", None, None)
     if use_kernel:
         inter = fm_ops.fm_interaction(v)
     else:
@@ -203,5 +207,7 @@ def retrieval_score(params, cfg: RecsysConfig, user_ids, cand_ids):
 
     c_rows = _flat_rows(cfg, cand_ids, slice(-1, None))
     vc = take_rows(params["tables"]["rows"], c_rows)          # (N, K)
+    vc = constrain(vc, "candidates", None)
     wc = take_rows(params["linear"]["rows"], c_rows)[..., 0]
-    return vc.float() @ q + wc.float() + const_u
+    scores = vc.float() @ q + wc.float() + const_u
+    return constrain(scores, "candidates")

@@ -12,9 +12,12 @@ parallel dense residual FFN).  Entry points, as the reference's:
 
 The parameters keep the reference's layout: every leaf of ``"layers"``
 is stacked over a leading ``n_layers`` axis, which a Python loop walks
-(the reference's ``lax.scan``; no sharding constraints, which do nothing
-without a mesh).  ``remat="layer"`` (every LM config's) recomputes each
-layer in the backward when gradients are on, as the reference's
+(the reference's ``lax.scan``).  The reference's sharding constraints are
+in place (:func:`repro_torch.parallel.sharding.constrain`, the same
+logical axes): no-ops outside an ``axis_rules`` context, and a
+``redistribute`` of ``DTensor`` activations inside one.
+``remat="layer"`` (every LM config's) recomputes each layer in the
+backward when gradients are on, as the reference's
 ``jax.checkpoint`` around its scan body.  Params are stored in
 ``param_dtype`` and cast to the compute dtype at use, as the reference's
 ``dense_apply`` does; :func:`compute_params` does that cast once for a
@@ -34,6 +37,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -45,6 +49,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.nn import core as nn
 from repro_torch.nn.attention import attention, scale_q
 from repro_torch.nn.rope import apply_rope, rope_cos_sin
+from repro_torch.parallel.sharding import constrain, replicated
 
 
 def padded_vocab(cfg: TransformerConfig, multiple: int = 256) -> int:
@@ -258,6 +263,8 @@ def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
 
     if cache is not None:
         # Functional cache updates: the reference rewrites the cache with
@@ -273,6 +280,7 @@ def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
                       window=cfg.sliding_window, kv_chunk=kv_chunk,
                       q_chunk=q_chunk)
         kv_out = (k, v)
+    o = constrain(o, "batch", None, "heads", None)
     out = _dense(lp["attn"]["wo"], o.reshape(b, s, n_q * hd), cdt)
     return out, kv_out
 
@@ -282,7 +290,8 @@ def _dense_ffn(lp, cfg: TransformerConfig, x):
     act = nn.ACTIVATIONS[cfg.activation]
     g = _dense(lp["w_gate"], x, cdt)
     u = _dense(lp["w_in"], x, cdt)
-    return _dense(lp["w_out"], act(g) * u, cdt)
+    mid = constrain(act(g) * u, "batch", None, "mlp")
+    return _dense(lp["w_out"], mid, cdt)
 
 
 def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
@@ -293,11 +302,12 @@ def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
     cdt = nn.as_dtype(cfg.compute_dtype)
     attn_out, kv = _attn_block(lp, cfg, h, q_pos, rope, cache=cache,
                                kv_chunk=kv_chunk, q_chunk=q_chunk)
-    h = h + attn_out
+    h = constrain(h + attn_out, "batch", "seq", None)
     x = nn.rmsnorm_apply(lp["ffn_norm"], h)
     if cfg.moe is not None:
         b, s, d = x.shape
-        y, aux = moe_lib.moe_apply(lp["moe"], cfg.moe, x.reshape(b * s, d),
+        xt = constrain(x.reshape(b * s, d), "tokens", None)
+        y, aux = moe_lib.moe_apply(lp["moe"], cfg.moe, xt,
                                    compute_dtype=cdt,
                                    activation=cfg.activation)
         y = y.reshape(b, s, d)
@@ -305,7 +315,8 @@ def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
             y = y + _dense_ffn(lp["ffn"], cfg, x)
     else:
         y, aux = _dense_ffn(lp["ffn"], cfg, x), None
-    return h + y.to(h.dtype), kv, aux
+    h = constrain(h + y.to(h.dtype), "batch", "seq", None)
+    return h, kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +324,14 @@ def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
 # ---------------------------------------------------------------------------
 
 def _embed(params, tokens, cdt):
-    return params["embed"]["w"][tokens.long()].to(cdt)
+    """The token rows of the embedding (``jnp.take``) through
+    ``F.embedding``.  A sharded table is gathered whole first (a
+    redistribution seam): ``DTensor``'s rules for a gather from a
+    vocab-sharded table with sharded ids fail (torch 2.11's ``index_put``
+    backward, 2.13's masked partial), and ``F.embedding``'s backward
+    has a rule where indexing's ``index_put`` does not in 2.11."""
+    return F.embedding(tokens.long(), replicated(params["embed"]["w"])
+                       ).to(cdt)
 
 
 def _head_weight(params, cfg: TransformerConfig, cdt):
@@ -331,6 +349,7 @@ def forward(params, cfg: TransformerConfig, tokens, *, return_cache=False,
     out = forward_hidden(params, cfg, tokens, return_cache=return_cache,
                          kv_chunk=kv_chunk, q_chunk=q_chunk)
     logits = nn.dot(out[0], _head_weight(params, cfg, cdt))
+    logits = constrain(logits, "tokens", None, None)
     return (logits, *out[1:])
 
 
@@ -345,7 +364,7 @@ def forward_hidden(params, cfg: TransformerConfig, tokens, *,
     instead of kept.  Serving never asks for grads, so it runs no remat."""
     cdt = nn.as_dtype(cfg.compute_dtype)
     b, s = tokens.shape
-    h = _embed(params, tokens, cdt)
+    h = constrain(_embed(params, tokens, cdt), "batch", "seq", None)
     q_pos = torch.arange(s, dtype=torch.int32,
                          device=tokens.device)[None].expand(b, s)
     rope = rope_cos_sin(q_pos, cfg.head_dim_, cfg.rope_theta)
@@ -378,6 +397,7 @@ def forward_hidden(params, cfg: TransformerConfig, tokens, *,
 def _chunk_nll(h_chunk, labels_chunk, head_w):
     """CE sum and token count of one (B, sc, d) hidden chunk."""
     logits = nn.dot(h_chunk, head_w).float()                 # (B, sc, V)
+    logits = constrain(logits, "tokens", None, None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels_chunk.clamp_min(0).long()[..., None])[..., 0]
@@ -462,7 +482,7 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
     # layers run; entries past the window are masked by
     # (q_pos - kv_pos) < window, in the reference and in B5 alike.
     rows = (torch.arange(b, device=tokens.device), (cur % t).long())
-    h = _embed(params, tokens[:, None], cdt)
+    h = constrain(_embed(params, tokens[:, None], cdt), "batch", None, None)
     q_pos = cur[:, None]
     rope = rope_cos_sin(q_pos, cfg.head_dim_, cfg.rope_theta)
     cache["slot_pos"][rows] = cur

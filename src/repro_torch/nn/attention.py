@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import flatten_ready
+
 NEG_INF = -1e30
 
 
@@ -107,6 +109,9 @@ def attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
     q_pos: (B, Sq) int; kv_pos: (B, Skv) int, -1 for invalid slots.
     Returns (B, Sq, H, D) in v's dtype.
     """
+    # the einsums flatten (batch, heads): sharded q / k / v keep only
+    # their batch axis sharded (a redistribution seam, as in nn.core.dot)
+    q, k, v = (flatten_ready(t, 0, t.dim() - 2) for t in (q, k, v))
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     if h % hkv:

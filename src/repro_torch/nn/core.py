@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.common import prng
+from repro_torch.parallel.sharding import flatten_ready
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -62,10 +63,15 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``models.transformer.xla_rounding``).  On the CPU, where torch's bf16
     GEMM may round partial sums, :func:`matmul` keeps the reference's
     rounding; the JEDI paths keep :func:`matmul` everywhere.
+
+    A sharded ``x`` (a ``DTensor``), and the grad of the result, keep at
+    most their first leading axis sharded
+    (``parallel.sharding.flatten_ready``): the product and its backward
+    flatten the leading axes.
     """
-    if x.is_cuda:
-        return torch.matmul(x, w)
-    return matmul(x, w)
+    x = flatten_ready(x, 0, x.dim() - 2)
+    y = torch.matmul(x, w) if x.is_cuda else matmul(x, w)
+    return flatten_ready(y, 0, y.dim() - 2)
 
 
 def sum_upcast(x: torch.Tensor, dim) -> torch.Tensor:

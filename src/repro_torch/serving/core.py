@@ -151,6 +151,11 @@ class Workload:
         """The pad-to-bucket ladder this workload earns for ``max_batch``."""
         raise NotImplementedError
 
+    def validate_buckets(self, bucket_sizes: list[int]) -> None:
+        """Veto a ladder the workload cannot serve (e.g. a bucket that
+        does not divide its data-parallel shards).  Default: anything
+        goes."""
+
     def cache_key(self, bucket) -> tuple:
         """Everything a bound callable's identity depends on."""
         return (self.name, bucket)
@@ -320,6 +325,7 @@ class ExecutionCore:
         if bucket_sizes is None:
             bucket_sizes = workload.bucket_ladder(max_batch)
         self.bucket_sizes = sorted(int(b) for b in bucket_sizes)
+        workload.validate_buckets(self.bucket_sizes)
         self._wall_windows: list[tuple[float, float]] = []
         self._cache: dict[tuple, object] = {}
 

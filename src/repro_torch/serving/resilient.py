@@ -143,7 +143,8 @@ class ResilientEngine:
     """Never-raise serving over a forward path's degradation ladder."""
 
     def __init__(self, params, cfg, *, forward: str = "fused_full",
-                 device="cuda", bucket_sizes=None, max_batch: int = 1024,
+                 device="cuda", shards=None, bucket_sizes=None,
+                 max_batch: int = 1024,
                  metrics: ServingMetrics | None = None, injector=None,
                  watchdog_s: float | None = 30.0, max_inflight: int = 8,
                  probe_initial_s: float = 0.25, probe_max_s: float = 60.0,
@@ -163,6 +164,7 @@ class ResilientEngine:
         self._clock = clock
         self._params = params        # RAW params: each rung's spec applies
         self._device = device        # its own transform at construction
+        self._shards = shards
         self._max_batch = int(max_batch)
         self._construct_failed: set[int] = set()
         self._inflight: list[ResilientPending] = []
@@ -176,7 +178,8 @@ class ResilientEngine:
             try:
                 eng = ServingEngine(
                     params, cfg, forward=self.chain[lvl], device=device,
-                    bucket_sizes=bucket_sizes, max_batch=max_batch,
+                    shards=shards, bucket_sizes=bucket_sizes,
+                    max_batch=max_batch,
                     metrics=self.metrics, injector=injector)
             except Exception as e:    # noqa: BLE001 — rung skip, counted
                 self._construct_failed.add(lvl)
@@ -212,7 +215,7 @@ class ResilientEngine:
 
     @property
     def n_shards(self) -> int:
-        return 1
+        return self._engines[self._base_level].n_shards
 
     @property
     def device(self):
@@ -289,7 +292,8 @@ class ResilientEngine:
             try:
                 eng = ServingEngine(
                     self._params, self.cfg, forward=self.chain[level],
-                    device=self._device, bucket_sizes=self.bucket_sizes,
+                    device=self._device, shards=self._shards,
+                    bucket_sizes=self.bucket_sizes,
                     max_batch=self._max_batch, metrics=self.metrics,
                     injector=self.injector)
             except Exception:

@@ -13,6 +13,13 @@ updates the params and its state in place.
   the mean over the micro-batches, as the reference's ``lax.scan`` gives.
 * **Metrics stay on the device** as 0-d tensors; only the caller turns
   them into floats (the train CLI does so on log steps alone).
+* **Sharded states** — with ``DTensor`` params (placed by
+  ``parallel.sharding.distribute`` and stepped inside an ``axis_rules``
+  context) each grad is redistributed to its param's placements as soon
+  as autograd returns it: a replicated param's ``Partial`` grad is
+  all-reduced, a sharded one's reduce-scattered, which is the
+  data-parallel reduction XLA inserts where the reference's grads meet
+  their params' shardings.  The optimizer then sees reduced grads.
 
 The trainer state is a plain dict ``{"params", "opt", "step"}``, with the
 step a 0-d int32 tensor on the params' device, so the checkpoint module
@@ -24,9 +31,17 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.training.optimizer import Optimizer
+
+
+def _like(g, p):
+    """``g`` with ``p``'s placements when ``p`` is a ``DTensor``."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def init_state(seed, init_params_fn: Callable, optimizer: Optimizer):
@@ -50,7 +65,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        grads = tree_unflatten(params, [g.float() for g in grads])
+        grads = tree_unflatten(params, [_like(g.float(), p)
+                                        for g, p in zip(grads, leaves)])
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
