@@ -59,7 +59,11 @@ non-zero on any failure:
    stages and path; B5 also at the LM paths' own decode shapes beside
    SDPA, with the plan each picks: danube's (B=128, T=4,096, bf16,
    window 4,096) and moonshot's (B=16, T=2,048, H=Hkv=16, D=128, bf16,
-   full attention: the CUDA-core path);
+   full attention: the CUDA-core path), and at both the host's and
+   the card's time a call through the op ``repro_torch::flash_decode``
+   against its launch called straight (``dispatch_ab``, 12 interleaved
+   pairs); B3 at its main shape against
+   the unfused oracle ``kernels/fused_jedinet/ref.py`` (5e-4 of scale);
 5. the trigger's serving front at jedi_30p fp32 through
    ``ResilientEngine``, each run with the launch counts set to 0 just
    before it and read just after (B1's and B2's launches here join
@@ -243,17 +247,44 @@ non-zero on any failure:
    * 11d, 11a's sharded state saved and restored with
      ``restore(shardings=...)`` onto a 1-D ``("data",)`` mesh, bitwise.
 
+12. the cell programs (``launch/steps.py``), the dry run
+   (``launch/dryrun.py``) and the H100 roofline (``launch/roofline.py``):
+   * 12a, on the card's host, one dry-run cell per family at full
+     width on the 16 x 16 mesh of 256 fake ranks (jedinet-30p
+     stream_1k, fm train_batch, gcn-cora minibatch_lg, h2o-danube-1.8b
+     decode_32k): each ``status: ok``, its roofline terms, per-rank
+     FLOPs, bytes, collective bytes and peak memory, and its time;
+   * 12b, on a (1, 1) mesh over a world-size-1 NCCL group, at full width
+     (weights from ``init(int)``, data from the repo's generators):
+     jedinet-30p stream_1k (B=1,024) and train_jets (B=4,096), fm
+     serve_bulk (B=262,144), gcn-cora full_graph_sm and h2o-danube-1.8b
+     decode_32k (B=128, every one of the T=4,096 cache slots full).
+     Each cell's step against the entry point it wraps on the same
+     inputs (the train programs' steps, ``inet.forward_sr_split``,
+     ``models.recsys.forward``, ``tfm.decode_step`` called directly),
+     bitwise or within 1e-6 of scale; B5's launches of the entry
+     point's step held against its plain version (``HeldB5``); ms per
+     step of the cell's step and of its entry point on CUDA events (on
+     the danube cell also B5 through its op against its launch called
+     straight, ``dispatch_ab``); the roofline at chips=1 counted on the
+     real step and each time's ratio to it; against the fake count of
+     the same cell at chips=1, the FLOPs (1%), the step's inputs and
+     what the step adds to them (15% each).  B5's launches here join
+     its main-path count (``launches_by_phase["cells"]``).
+
 Before the last line it prints a ``training: {...}`` line with phase
 6's numbers, an ``lm: {...}`` line with phase 7's, a ``moe: {...}``
 line with phase 8's, an ``lm_training: {...}`` line with phase 9's, a
 ``gnn: {...}`` line with phase 10's, a ``multidevice: {...}`` line with
-phase 11's and one JSON object with each kernel's numbers; the last line
-is ``{"ok": true, "device": {...}}``.
+phase 11's, a ``cells: {...}`` line with phase 12's and one JSON object
+with each kernel's numbers; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1608,6 +1639,93 @@ class HeldB5:
               f"{', '.join(sorted(self.shapes))}")
         return {"b5_launches_held": len(self.errs),
                 "b5_vs_plain_of_scale": worst, "empty_slot_share": empty}
+
+
+#: Interleaved pairs of each A/B of B5's op dispatch (phases 4 and 12b).
+DISPATCH_PAIRS = 12
+
+
+class B5Straight:
+    """Inside ``with``, B5 calls made through the module skip the op
+    ``repro_torch::flash_decode``: its wrapper's checks, then the op's
+    CUDA kernel (``_launch``) called straight, so :func:`dispatch_ab`
+    can price the op's host dispatch.  The launch counts on the module's
+    name, so ``launches`` is the kernel's own counter, as in
+    :class:`HeldB5`."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_decode import kernel as FDK
+        self._fdk, self._call = FDK, FDK.flash_decode_kernel_call
+
+    @property
+    def launches(self) -> int:
+        return self._call.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._call.launches = n
+
+    def __call__(self, q, k, v, q_pos, kv_pos, *, chunk=None, window=None):
+        self._fdk._check(q, k, v, q_pos, kv_pos, window)
+        return self._fdk._launch(q, k, v, q_pos, kv_pos, chunk, window)
+
+    def __enter__(self):
+        self._fdk.flash_decode_kernel_call = self
+        return self
+
+    def __exit__(self, *exc):
+        self._fdk.flash_decode_kernel_call = self._call
+
+
+def dispatch_ab(label: str, fn, reps: int,
+                pairs: int = DISPATCH_PAIRS) -> dict:
+    """``fn()`` with B5 through its op against B5 called straight
+    (:class:`B5Straight`), in ``pairs`` interleaved pairs (op, straight,
+    straight, op, ...): per call, the host's enqueue time (perf_counter
+    around ``reps`` calls, no sync between them) and the device's (CUDA
+    events around the same calls), after two warm calls.  Each side's
+    median and spread (max - min); ``beyond_spread`` says whether the
+    straight call's median beats the op's by more than the op's own
+    spread."""
+    readings = {"op": ([], []), "straight": ([], [])}
+    for i in range(pairs):
+        for side in ("op", "straight")[::1 if i % 2 == 0 else -1]:
+            with B5Straight() if side == "straight" else \
+                    contextlib.nullcontext():
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                host = time.perf_counter() - t0
+                stop.record()
+                torch.cuda.synchronize()
+            readings[side][0].append(host / reps * 1e6)
+            readings[side][1].append(start.elapsed_time(stop) / reps)
+    out: dict = {"pairs": pairs, "reps": reps}
+    for side, (host_us, ms) in readings.items():
+        out[side] = {"host_us": float(np.median(host_us)),
+                     "host_us_range": [min(host_us), max(host_us)],
+                     "ms": float(np.median(ms)), "ms_range": [min(ms), max(ms)]}
+    op, st = out["op"], out["straight"]
+    out["gain_host_us"] = op["host_us"] - st["host_us"]
+    out["gain_ms"] = op["ms"] - st["ms"]
+    out["op_spread_ms"] = op["ms_range"][1] - op["ms_range"][0]
+    out["beyond_spread"] = out["gain_ms"] > out["op_spread_ms"]
+    print(f"  B5 dispatch A/B, {label}, {pairs} interleaved pairs of {reps} "
+          f"calls: through the op {op['ms']:.4f} ms (range "
+          f"{op['ms_range'][0]:.4f}-{op['ms_range'][1]:.4f}), host "
+          f"{op['host_us']:.1f} us; straight {st['ms']:.4f} ms (range "
+          f"{st['ms_range'][0]:.4f}-{st['ms_range'][1]:.4f}), host "
+          f"{st['host_us']:.1f} us; the straight call gains "
+          f"{out['gain_ms']:.4f} ms and {out['gain_host_us']:.1f} us of host "
+          f"a call, beyond the op's spread {out['op_spread_ms']:.4f} ms: "
+          f"{out['beyond_spread']}")
+    return out
 
 
 def lm_engine(params, cfg, dev, *, record: bool = False, **kw):
@@ -3225,6 +3343,405 @@ def multidevice(dev, card: str, kernels, b1: Kernel) -> dict:
     return out
 
 
+# ---- phase 12: the cell programs, the dry run and the H100 roofline ---------
+
+#: 12a: one dry-run cell per family at full width on the 16 x 16 mesh of
+#: fake ranks (the card's host does this work).
+DRYRUN_CELLS = (("jedinet-30p", "stream_1k"), ("fm", "train_batch"),
+                ("gcn-cora", "minibatch_lg"),
+                ("h2o-danube-1.8b", "decode_32k"))
+#: 12b: cells run for real on the card at full width.
+CARD_CELLS = (("jedinet-30p", "stream_1k"), ("jedinet-30p", "train_jets"),
+              ("fm", "serve_bulk"), ("gcn-cora", "full_graph_sm"),
+              ("h2o-danube-1.8b", "decode_32k"))
+#: 12b: a cell's step against the entry point it wraps, where the two
+#: call orders differ, of scale (at least 1); else bitwise.
+TOL_CELL = 1e-6
+#: 12b: the card's count of a step against the fake count of the same
+#: cell at chips=1: FLOPs within 1%; peak memory within 15%, held in two
+#: parts that each side measures on its own, the step's inputs and what
+#: the step adds to them.
+TOL_CELL_FLOPS, TOL_CELL_PEAK = 0.01, 0.15
+#: 12b: the danube cell's cache: every one of its T = 4,096 slots written
+#: (positions 4,096..8,191), the step at position 8,192.
+CELL_DECODE_POS = 8192
+
+
+def host_line() -> str:
+    """The host's CPU model (``lscpu``), architecture and cores: the dry
+    run is host work."""
+    import os
+    import platform
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    info = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    model = info.get("Model name", "unknown")
+    if model == "unknown":            # a VM may hide the name
+        model = (f"{info.get('Vendor ID', '?')} family "
+                 f"{info.get('CPU family', '?')} model {info.get('Model', '?')}")
+    return f"{model} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def _cell_inputs(arch, shape_name: str, prog, a_args, dev):
+    """Real args of a card cell, made as the abstract ones say: weights
+    from ``init(int)`` on the card, data from the repo's generators or
+    seeded ids in range.  Returns (args, entry): ``entry(args)`` runs the
+    entry point the cell wraps on copies where the step writes;
+    ``entry.timed`` (where set) runs it on the state itself, for
+    timing."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core import interaction_net as inet
+    from repro_torch.data.graphs import community_graph
+    from repro_torch.data.jets import jet_batches, make_jets
+    from repro_torch.data.recsys_data import ctr_batches
+    from repro_torch.launch.train import make_program
+    from repro_torch.models import recsys as fm_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.gnn import GNN_MODULES
+
+    cfg = arch.model
+
+    def to_dev(batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in batch.items()}
+
+    def train_state(params):
+        return {"params": params, "opt": prog.optimizer.init(params),
+                "step": torch.ones((), dtype=torch.int32, device=dev)}
+
+    def program_step(program_step_fn):
+        # the program's step on a copy of the state: the step updates
+        # params and moments in place
+        def entry(args):
+            return program_step_fn(tree_map(torch.clone, args[0]), args[1])
+        entry.timed = lambda args: program_step_fn(*args)
+        return entry
+
+    if shape_name == "stream_1k":
+        x = make_jets(np.random.RandomState(12), a_args[1].shape[0],
+                      cfg.n_objects, cfg.n_features)[0]
+        args = (inet.init(0, cfg, device=dev), torch.from_numpy(x).to(dev))
+        return args, lambda a: inet.forward_sr_split(a[0], cfg, a[1],
+                                                     grid=False)
+    if shape_name == "train_jets":
+        batch = next(jet_batches(0, a_args[1]["x"].shape[0], cfg.n_objects,
+                                 cfg.n_features))
+        args = (train_state(inet.init(0, cfg, device=dev)), to_dev(batch))
+        # the jedi program at lr 1e-3: warmup 1e-3 * t / 50, the cell's
+        # 2e-3 * t / 100, the same fp32 rates
+        return args, program_step(make_program(
+            arch.arch_id, batch["x"].shape[0], 1e-3, device=dev)[1])
+    if shape_name == "serve_bulk":
+        ids = next(ctr_batches(0, a_args[1].shape[0], cfg.vocab_sizes))["ids"]
+        args = (fm_lib.init(0, cfg, device=dev), torch.from_numpy(ids).to(dev))
+        return args, lambda a: fm_lib.forward(a[0], cfg, a[1])
+    if shape_name == "full_graph_sm":
+        g = a_args[1]
+        n, e, d_in = g["x"].shape[0], g["senders"].shape[0], g["x"].shape[1]
+        graph = community_graph(0, n, e, d_in, n_classes=cfg.n_classes)
+        params = GNN_MODULES[cfg.kind].init(0, cfg, d_in, cfg.n_classes,
+                                            device=dev)
+        args = (train_state(params), to_dev(graph))
+        # the gnn program at lr 5e-4: warmup 5e-4 * t / 50, the cell's
+        # 1e-3 * t / 100
+        return args, program_step(make_program(arch.arch_id, 0, 5e-4,
+                                               device=dev)[1])
+    if shape_name == "decode_32k":
+        b = a_args[2].shape[0]
+        params = tfm.init(0, cfg, device=dev)
+        cache = tfm.init_cache(cfg, b, arch.shapes[shape_name].dim(
+            "seq_len"), device=dev)
+        t = cache["k"].shape[2]
+        gen = torch.Generator(device=dev).manual_seed(13)
+        for i in range(cfg.n_layers):
+            for kv in ("k", "v"):
+                cache[kv][i].copy_(torch.randn(
+                    cache[kv].shape[1:], generator=gen, device=dev))
+        cache["slot_pos"].copy_(torch.arange(
+            CELL_DECODE_POS - t, CELL_DECODE_POS, dtype=torch.int32,
+            device=dev).expand(b, t))
+        cache["pos"].fill_(CELL_DECODE_POS)
+        tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        return (params, cache, tokens), lambda a: tfm.decode_step(
+            a[0], cfg, a[1], a[2])
+    raise ValueError(f"no card cell for {arch.arch_id} x {shape_name}")
+
+
+def cell_programs(dev, card: str, kernels, b5: Kernel) -> dict:
+    """Phase 12: the cell programs (``launch/steps.py``), the dry run
+    (``launch/dryrun.py``) and the H100 roofline (``launch/roofline.py``).
+    12a runs one cell per family on the 16 x 16 mesh of fake ranks; 12b
+    runs real cells on the card on a (1, 1) mesh over a world-size-1 NCCL
+    group, each held against the entry point it wraps, timed, counted and
+    set beside its roofline and its fake count at chips=1.  Returns B5's
+    12b launches (counts set to 0 just before the cells and read just
+    after) and the phase's numbers.  The group is destroyed on the way
+    out, on failure too."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.steps import build_cell, place
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import axis_rules
+
+    out: dict = {"card": card, "dryrun": {}, "cells": {}}
+
+    # -- a. the dry run -------------------------------------------------------
+    print("== 12a. dry run: one cell per family at full width on the 16 x 16 "
+          "mesh of fake ranks (host work)")
+    t_all = time.perf_counter()
+    for arch_id, shape_name in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch_id, shape_name, False, "")
+        wall = time.perf_counter() - t0
+        ok = rec["status"] == "ok"
+        r = rec.get("roofline", {})
+        terms = (f"bound {r['bound']}, step_s {r['step_s'] * 1e3:.4f} ms "
+                 f"(compute {r['compute_s'] * 1e3:.4f}, memory "
+                 f"{r['memory_s'] * 1e3:.4f}, collective "
+                 f"{r['collective_s'] * 1e3:.4f}); {r['flops_per_chip']:.4g} "
+                 f"FLOP, {r['hbm_bytes_per_chip']:.4g} B, "
+                 f"{r['coll_bytes_per_chip']:.4g} collective B per rank; "
+                 f"peak {rec['memory']['peak_bytes'] / 2**30:.3f} GiB"
+                 if ok else rec.get("error", "")[:300])
+        check(ok, f"{arch_id} x {shape_name} @ 16x16: {rec['status']}, "
+                  f"{wall:.1f} s (build {rec.get('lower_s')} s, step "
+                  f"{rec.get('compile_s')} s): {terms}")
+        out["dryrun"][f"{arch_id}/{shape_name}"] = {
+            "status": rec["status"], "wall_s": wall,
+            **({"roofline": {k: r[k] for k in (
+                "bound", "step_s", "compute_s", "memory_s", "collective_s",
+                "flops_per_chip", "hbm_bytes_per_chip",
+                "coll_bytes_per_chip")},
+                "collectives": rec["collectives"]["bytes_by_op"],
+                "memory": rec["memory"]} if ok else
+               {"error": rec.get("error")})}
+    out["dryrun_s"] = time.perf_counter() - t_all
+    out["host"] = host_line()
+    print(f"  12a: {len(DRYRUN_CELLS)} cells in {out['dryrun_s']:.1f} s  "
+          f"[host: {out['host']}]")
+
+    # -- b. real cells on the card --------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0,
+        timeout=timedelta(seconds=120), device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        zero_counts(kernels)
+        for arch_id, shape_name in CARD_CELLS:
+            arch = get_arch(arch_id)
+            label = f"{arch_id} x {shape_name}"
+            print(f"== 12b. {label} on the card, (1, 1) mesh over a "
+                  f"world-size-1 NCCL group")
+            fake = dryrun.count_cell(arch, arch.shapes[shape_name], mesh)
+            prog = build_cell(arch, arch.shapes[shape_name], mesh)
+            a_args, in_sh, _ = prog.make_abstract()
+            args, entry = _cell_inputs(arch, shape_name, prog, a_args, dev)
+            same = all(tuple(a.shape) == tuple(t.shape) and a.dtype == t.dtype
+                       for a, t in zip(tree_leaves(a_args),
+                                       tree_leaves(args)))
+            check(same, f"{label}: the real args have the abstract args' "
+                        f"shapes and dtypes")
+            # the real inputs' storages, counted apart from the counter
+            stores = {t.untyped_storage().data_ptr():
+                      t.untyped_storage().nbytes() for t in tree_leaves(args)
+                      if isinstance(t, torch.Tensor)}
+            dargs = place(args, in_sh)
+            decode = shape_name == "decode_32k"
+            rounding = tfm.xla_rounding() if decode else \
+                contextlib.nullcontext()
+            with rounding:
+                res = _card_cell(label, prog, args, dargs, entry, mesh,
+                                 decode, dev, card, roofline, axis_rules,
+                                 DTensor)
+            fake_mem = fake["memory"]
+            res["fake"] = {"flops_per_chip": fake["roofline"][
+                "flops_per_chip"], "peak_bytes": fake_mem["peak_bytes"],
+                "argument_bytes": fake_mem["argument_bytes"],
+                "step_s": fake["roofline"]["step_s"]}
+            flops_c, flops_f = res["flops_per_chip"], fake["roofline"][
+                "flops_per_chip"]
+            flops_gap = abs(flops_c - flops_f) / max(flops_f, 1.0)
+            # the inputs: the real args' storages vs the fake count's; what
+            # the step adds: the allocator's peak over what was allocated
+            # before it vs the fake count's peak less its inputs
+            res["card_arg_bytes"] = sum(stores.values())
+            arg_gap = abs(res["card_arg_bytes"] - fake_mem[
+                "argument_bytes"]) / fake_mem["argument_bytes"]
+            fake_step = fake_mem["peak_bytes"] - fake_mem["argument_bytes"]
+            step_gap = abs(res["card_step_bytes"] - fake_step) / fake_step
+            res.update(flops_gap=flops_gap, arg_gap=arg_gap,
+                       step_gap=step_gap)
+            check(flops_gap <= TOL_CELL_FLOPS,
+                  f"{label}: FLOPs counted on the card step {flops_c:.6g} vs "
+                  f"the fake count at chips=1 {flops_f:.6g}: {flops_gap:.2e} "
+                  f"(tol {TOL_CELL_FLOPS:g})")
+            check(arg_gap <= TOL_CELL_PEAK,
+                  f"{label}: the step's inputs on the card (their storages) "
+                  f"{res['card_arg_bytes'] / 2**30:.4f} GiB vs the fake "
+                  f"count's {fake_mem['argument_bytes'] / 2**30:.4f} GiB: "
+                  f"{arg_gap:.2%} (tol {TOL_CELL_PEAK:.0%})")
+            check(step_gap <= TOL_CELL_PEAK,
+                  f"{label}: what the step adds to its inputs, on the card "
+                  f"(max_memory_allocated over what was allocated before "
+                  f"it) {res['card_step_bytes'] / 2**20:.3f} MiB vs the fake "
+                  f"count's peak less its inputs {fake_step / 2**20:.3f} "
+                  f"MiB: {step_gap:.2%} (tol {TOL_CELL_PEAK:.0%})")
+            out["cells"][label] = res
+            del args, dargs, entry, prog
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        launched = {k.name: k.counter.launches for k in kernels
+                    if k.counter.launches}
+        b5_launches = launched.pop(b5.name, 0)
+        n_layers = get_arch("h2o-danube-1.8b").model.n_layers
+        check(not launched and b5_launches > 0
+              and b5_launches % n_layers == 0,
+              f"12b: {b5.name} launched {b5_launches} times (one per danube "
+              f"layer per decode step), other kernels "
+              f"{launched or 'none'}")
+    finally:
+        dist.destroy_process_group()
+    out["b5_launches"] = b5_launches
+    return out
+
+
+def _card_cell(label, prog, args, dargs, entry, mesh, decode, dev, card,
+               roofline, axis_rules, DTensor) -> dict:
+    """One card cell: its step against its entry point, HeldB5 on the
+    danube cell's B5 launches, ms per step of the cell's step and of the
+    entry point (on the danube cell also with B5 past its op,
+    :func:`dispatch_ab`), the roofline counted on the real step at
+    chips=1, the memory one step adds to its inputs."""
+    from repro_torch.common.tree import tree_leaves
+
+    def step():
+        with axis_rules(mesh):
+            return prog.step_fn(*dargs)
+
+    def local(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    res: dict = {}
+    # the step against the entry point it wraps, on the same state
+    if decode:
+        params, cache, tokens = args
+        slot = int(cache["pos"][0]) % cache["k"].shape[2]
+        saved = {kv: cache[kv][:, :, slot].clone() for kv in ("k", "v")}
+        saved_sp, saved_pos = cache["slot_pos"].clone(), cache["pos"].clone()
+
+        def restore():
+            for kv in ("k", "v"):
+                cache[kv][:, :, slot] = saved[kv]
+            cache["slot_pos"].copy_(saved_sp)
+            cache["pos"] = saved_pos.clone()
+            # the DTensor args hold pos too: the step replaced it
+            dargs[1]["pos"] = DTensor.from_local(
+                cache["pos"], dargs[1]["pos"].device_mesh,
+                dargs[1]["pos"].placements, run_check=False)
+
+        with HeldB5() as held:
+            want_logits, _ = entry(args)
+        res.update(held.check(f"{label}: the entry point's step on the "
+                              f"live cache"))
+        want_rows = {kv: cache[kv][:, :, slot].clone() for kv in ("k", "v")}
+        want_sp = cache["slot_pos"].clone()
+        restore()
+        got_logits, got_cache = step()
+        got = [local(got_logits)] + [cache[kv][:, :, slot].clone()
+                                     for kv in ("k", "v")] + [
+            cache["slot_pos"].clone(), local(got_cache["pos"])]
+        want = [want_logits, want_rows["k"], want_rows["v"], want_sp,
+                saved_pos + 1]
+        restore()
+        what = "tfm.decode_step called directly"
+    elif prog.kind == "train":
+        want_state, want_m = entry(args)
+        new_state, m = step()
+        got = [local(m["loss"]), local(m["grad_norm"])] + [
+            local(t) for t in tree_leaves(new_state["params"])]
+        want = [want_m["loss"], want_m["grad_norm"]] + tree_leaves(
+            want_state["params"])
+        what = "its train program's step"
+    else:
+        want, got = [entry(args)], [local(step())]
+        what = "its entry point"
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    rel = max(err_of(g, w)[1] for g, w in zip(got, want))
+    check(bitwise or rel <= TOL_CELL,
+          f"{label}: the cell's step vs {what} on the same inputs: bitwise "
+          f"{bitwise}, {rel:.2e} of scale (tol {TOL_CELL:g})")
+    res.update(vs_entry_bitwise=bitwise, vs_entry_rel=rel)
+
+    # ms per step (CUDA events, a warm step first, median of 5 windows)
+    spread: list = []
+    res["ms"] = time_ms(step, 3, spread)
+    res["ms_windows"] = spread
+    if decode:
+        restore()
+    # the entry point on the same inputs, the same way
+    timed = getattr(entry, "timed", entry)
+    spread = []
+    res["entry_ms"] = time_ms(lambda: timed(args), 3, spread)
+    res["entry_ms_windows"] = spread
+    if decode:
+        restore()
+        res["b5_dispatch"] = dispatch_ab(f"{label}: tfm.decode_step",
+                                         lambda: entry(args), 3)
+        restore()
+    # the roofline at chips=1, counted on one real step
+    counter = roofline.StepCounter(None, mesh)
+    counter.track_args(dargs)
+    with counter:
+        o = step()
+    rec = roofline.record(counter, 1, o, dargs)
+    del o
+    if decode:
+        restore()
+    r = rec["roofline"]
+    res.update(roofline=r, memory=rec["memory"],
+               flops_per_chip=r["flops_per_chip"],
+               ratio=res["ms"] / (r["step_s"] * 1e3),
+               entry_ratio=res["entry_ms"] / (r["step_s"] * 1e3))
+    # the memory one step adds to what is allocated before it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    o = step()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    del o
+    if decode:
+        restore()
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["card_step_bytes"] = grown
+    print(f"  {label}: {res['ms']:.4f} ms per step (CUDA events) against "
+          f"the roofline's step_s {r['step_s'] * 1e3:.4f} ms ({r['bound']}; "
+          f"compute {r['compute_s'] * 1e3:.4f}, memory "
+          f"{r['memory_s'] * 1e3:.4f} ms: {r['flops_per_chip']:.4g} FLOP "
+          f"{r['flops_by_dtype']}, {r['hbm_bytes_per_chip']:.4g} B): ratio "
+          f"{res['ratio']:.2f}; the entry point {res['entry_ms']:.4f} ms, "
+          f"ratio {res['entry_ratio']:.2f}; max_memory_allocated "
+          f"{res['max_memory_allocated'] / 2**30:.3f} GiB  [{card}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3245,6 +3762,7 @@ def main() -> int:
         from repro_torch.kernels.fused_jedinet import full_kernel as FK
         from repro_torch.kernels.fused_jedinet import kernel as EK
         from repro_torch.kernels.fused_jedinet import ops
+        from repro_torch.kernels.fused_jedinet.ref import fused_edge_block_ref
         from repro_torch.kernels.jedi_linear import autotune as jl_tune
         from repro_torch.kernels.jedi_linear import linear_kernel as LK
         from repro_torch.kernels.jedi_linear import ops as jl_ops
@@ -3533,17 +4051,23 @@ def main() -> int:
     rows = [time_row(k, timings[k.name], card, *peaks) for k in kernels]
     # B5 at the LM path's own decode shape (phase 7 serves it), beside
     # the decode_32k shape of its row
-    lm_row = time_row(b5, lm_decode_timing(dev), card, *peaks)
+    lm_t = lm_decode_timing(dev)
+    lm_row = time_row(b5, lm_t, card, *peaks)
     rows[4]["lm_decode"] = {key: lm_row[key] for key in (
         "at", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "ms_windows", "partitions", "partition_keys", "stages",
         "path", "blocks", "warps_per_block")}
     # and at the MoE LM's (phase 8a serves it): G = 1, D = 128
-    moe_row = time_row(b5, lm_decode_timing(
-        dev, MOONSHOT_LM_DECODE, None, "moonshot-v1-16b-a3b", 8), card,
-        *peaks)
+    moe_t = lm_decode_timing(dev, MOONSHOT_LM_DECODE, None,
+                             "moonshot-v1-16b-a3b", 8)
+    moe_row = time_row(b5, moe_t, card, *peaks)
     rows[4]["moe_decode"] = {key: moe_row[key] for key in rows[4][
         "lm_decode"]}
+    # the host cost of B5's op dispatch at both LM decode shapes
+    for key, t in (("lm_decode", lm_t), ("moe_decode", moe_t)):
+        rows[4][key]["dispatch"] = dispatch_ab(f"B5 alone at {t.label}",
+                                               t.run, 20)
+    del lm_t, moe_t
     for row in (lm_row, moe_row):
         print(f"  flash_decode plan at {row['at']}: {row['partitions']} "
               f"partitions of {row['partition_keys']} keys, "
@@ -3594,6 +4118,19 @@ def main() -> int:
           f"{ms128:.4f} ms/batch; bound {bound128:.4f} ms ({ops_ / 1e9:.4f} "
           f"GFLOP)  [{card}]")
     rows[1]["tracks_128"] = {"ms": ms128, "bound_ms": bound128}
+    # B3 against the unfused oracle (explicit B of every edge, summed by
+    # torch.sum), beside its plain version's check in phase 2
+    xk, bound, cfg = main_args[b3.name]
+    got = b3.jedi.run(xk, bound, cfg, None)
+    want = fused_edge_block_ref(
+        inet.init(0, cfg, scale="lecun", device=dev)["fr"], cfg, xk)
+    err, rel = err_of(got, want)
+    check(rel <= TOL_FP32,
+          f"{b3.name} {timings[b3.name].label} vs the unfused oracle "
+          f"fused_edge_block_ref: max|err| {err:.3e} ({rel:.2e} of scale, "
+          f"tol {TOL_FP32:g})")
+    rows[2]["vs_oracle"] = {"max_abs_err": err, "of_scale": rel,
+                            "oracle": "kernels/fused_jedinet/ref.py"}
     for key, (launches, snap) in serving.items():
         print(f"  served {key}: {launches} launches, {snap['kgps']:.1f} KGPS")
 
@@ -3652,6 +4189,13 @@ def main() -> int:
     rows[0]["launches_by_phase"]["multidevice"] = md.pop("b1_launches")
     rows[0]["launches"] += rows[0]["launches_by_phase"]["multidevice"]
     print("multidevice: " + json.dumps(md))
+    torch.cuda.empty_cache()
+
+    # ---- 12. the cell programs, the dry run and the roofline ---------------
+    cells = cell_programs(dev, card, kernels, b5)
+    rows[4]["launches_by_phase"]["cells"] = cells.pop("b5_launches")
+    rows[4]["launches"] = sum(rows[4]["launches_by_phase"].values())
+    print("cells: " + json.dumps(cells))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_arch("<id>")`` -> ArchSpec.
 
 Counterpart of ``repro.configs.registry``: every arch of the reference
-has a port config (each module exports an ``ARCH``).
+has a port config (each module exports an ``ARCH``); the dry run
+(``launch/dryrun.py``) walks its cells with :func:`iter_cells`.
 """
 
 from __future__ import annotations
@@ -31,9 +32,21 @@ ARCH_MODULES = {
     "jedinet-tracks-128": "repro_torch.configs.jedi_tracks_128",
 }
 
+ASSIGNED_ARCHS = [a for a in ARCH_MODULES if not a.startswith("jedinet")]
+ALL_ARCHS = list(ARCH_MODULES)
+
 
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_MODULES)}")
     mod = importlib.import_module(ARCH_MODULES[arch_id])
     return mod.ARCH
+
+
+def iter_cells(archs=None, include_skipped: bool = False):
+    """Yield (arch_spec, shape_spec) for every dry-run cell."""
+    for arch_id in (archs or ASSIGNED_ARCHS):
+        spec = get_arch(arch_id)
+        shapes = spec.shapes if include_skipped else spec.runnable_shapes()
+        for shape in shapes.values():
+            yield spec, shape

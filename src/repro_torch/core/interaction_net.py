@@ -131,8 +131,8 @@ def build_b_matrix(cfg: JediNetConfig, x):
                                dtype=torch.long, device=x.device)
     lead = x.shape[:-2]
     b1 = x[..., :, None, :].expand(*lead, n_o, n_o - 1, p)
-    b2 = x.index_select(-2, send_idx.reshape(-1)).reshape(*lead, n_o,
-                                                          n_o - 1, p)
+    b2 = x.index_select(x.dim() - 2, send_idx.reshape(-1))
+    b2 = b2.reshape(*lead, n_o, n_o - 1, p)
     b = torch.cat([b1, b2], dim=-1)
     return b.reshape(*lead, cfg.n_edges, 2 * p)
 

@@ -13,6 +13,18 @@ counts one per call: with several sequence partitions the C call
 launches the decode kernel and then the small kernel that combines the
 partitions, and both are that one launch.
 
+The wrapper reaches both through one registered op,
+``torch.ops.repro_torch.flash_decode`` (``torch.library.custom_op``): its
+CUDA kernel is the launch, its CPU kernel the plain version, and its fake
+kernel gives the output's shape, so the op runs under ``FakeTensorMode``
+(the dry run, ``launch/dryrun.py``) without reaching the launch.  Eager
+calls on plain CUDA tensors with no dispatch mode active call the op's
+CUDA kernel straight, as the op would, without its Python dispatch.  Its FLOP
+formula (:func:`decode_flops`, registered with
+``torch.utils.flop_counter``) counts the kernel's work, so a counter of
+the step (``launch/roofline.py``) sees one op with B5's operations and
+not the plain version's products.
+
 :func:`plan` splits the sequence into partitions so the grid fills the
 card at any batch, and picks the kernel's path: tensor cores for a bf16
 cache at G = 4 (danube's decode), CUDA cores otherwise.  The kernel takes any S:
@@ -28,6 +40,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
@@ -228,14 +241,31 @@ def flash_decode_kernel_call(q, k, v, q_pos, kv_pos, *, chunk=None,
 
     CUDA tensors launch the kernel (and, with more than one partition,
     its combine) with ``chunk`` keys per partition, by default the
-    plan's (:func:`plan`); CPU tensors run the plain version.  Raises on
-    what the kernel does not take.
+    plan's (:func:`plan`); CPU tensors run the plain version; fake
+    tensors get the output's shape.  Raises on what the kernel does not
+    take.
     """
     _check(q, k, v, q_pos, kv_pos, window)
-    if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, q_pos, kv_pos, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the kernel runs on CUDA tensors, not {q.device}")
+    return torch.ops.repro_torch.flash_decode(q, k, v, q_pos, kv_pos, chunk,
+                                              window)
+
+
+flash_decode_kernel_call.launches = 0
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_decode", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor q_pos, Tensor kv_pos, "
+           "int? chunk, int? window) -> Tensor")
+def _flash_decode_op(q, k, v, q_pos, kv_pos, chunk, window):
+    return flash_decode_ref(q, k, v, q_pos, kv_pos, window=window)
+
+
+@_flash_decode_op.register_kernel("cuda")
+def _launch(q, k, v, q_pos, kv_pos, chunk, window):
+    """The kernel's launch on the current stream; counts it."""
     if not all(t.is_contiguous() for t in (q, k, v, q_pos, kv_pos)):
         raise ValueError("q, k, v, q_pos and kv_pos must be contiguous")
     b, hkv, g, d = q.shape
@@ -262,8 +292,29 @@ def flash_decode_kernel_call(q, k, v, q_pos, kv_pos, *, chunk=None,
             f"({torch.cuda.get_device_name(q.device)}, B={b}, S={s_len}, "
             f"Hkv={hkv}, G={g}, D={d}, {lay.n_parts} partitions of "
             f"{lay.part_len} keys, {lay.smem_bytes} B shared memory)")
+    # the module's name, so a stand-in there (chip_smoke's HeldB5) counts
     flash_decode_kernel_call.launches += 1
     return out
 
 
-flash_decode_kernel_call.launches = 0
+@_flash_decode_op.register_fake
+def _fake(q, k, v, q_pos, kv_pos, chunk, window):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def decode_flops(b: int, s: int, h: int, d: int) -> int:
+    """Operations of one-token attention of B x H query rows of width D
+    over S keys, every key read: per (row, key) the score (2D), its
+    weight on v (2D), and the mask's select, the max, the exp and the
+    sum (4)."""
+    return b * h * s * (4 * d + 4)
+
+
+#: The registered op (its overload packet), for callers that count it.
+flash_decode_op = torch.ops.repro_torch.flash_decode
+
+
+@register_flop_formula(flash_decode_op)
+def _flash_decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    b, hkv, g, d = q_shape
+    return decode_flops(b, k_shape[1], hkv * g, d)

@@ -34,7 +34,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn import segment_ops as seg
 from repro_torch.models.gnn import so3
 from repro_torch.nn import core as nn
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, rows_reshape
 
 N_RBF = 8
 
@@ -123,9 +123,12 @@ def _so2_conv(lp, cfg: GNNConfig, x_rot, gates, *, truncated: bool = False):
     cols = x_rot.unbind(1)
 
     def rows(idx):
-        return torch.stack([cols[i] for i in idx], 1).reshape(e, -1)
+        return rows_reshape(torch.stack([cols[i] for i in idx], 1), (e, -1))
 
     out = [None] * k                 # each output row: (E, C)
+
+    def split(y, n_rows):
+        return rows_reshape(y, (e, n_rows, c))
 
     def put(idx, y):
         for i, row in zip(idx, y.unbind(1)):
@@ -133,7 +136,7 @@ def _so2_conv(lp, cfg: GNNConfig, x_rot, gates, *, truncated: bool = False):
 
     # m = 0
     idx0 = [index(l, 0) for l in ml[0]]
-    y0 = nn.dense_apply(lp["so2_m0"], rows(idx0)).reshape(e, len(ml[0]), c)
+    y0 = split(nn.dense_apply(lp["so2_m0"], rows(idx0)), len(ml[0]))
     put(idx0, y0 * gates[:, 0:1, :])
 
     # m > 0: complex-pair mixing
@@ -146,8 +149,8 @@ def _so2_conv(lp, cfg: GNNConfig, x_rot, gates, *, truncated: bool = False):
         yp = nn.dense_apply(wr, xp) - nn.dense_apply(wi, xm)
         ym = nn.dense_apply(wi, xp) + nn.dense_apply(wr, xm)
         g = gates[:, m:m + 1, :]
-        put(ip, yp.reshape(e, len(ls), c) * g)
-        put(im, ym.reshape(e, len(ls), c) * g)
+        put(ip, split(yp, len(ls)) * g)
+        put(im, split(ym, len(ls)) * g)
     if any(o is None for o in out):
         zero = x_rot.new_zeros((e, c))
         out = [zero if o is None else o for o in out]
@@ -173,9 +176,9 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
     valid = ((dirs * dirs).sum(-1) > 0.25).to(alpha.dtype)
     alpha = alpha * valid[:, None]
 
-    gates_all = F.silu(
+    gates_all = rows_reshape(F.silu(
         nn.mlp_apply(lp["radial"], rbf, activation="silu")
-    ).reshape(-1, cfg.m_max + 1, c)
+    ), (-1, cfg.m_max + 1, c))
 
     # ---- pass 2: eSCN conv, chunked over edges ----
     # only |m| <= m_max rotated components are live in the SO(2) mix, so
@@ -187,8 +190,9 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
         y_rot = _so2_conv(lp, cfg, x_rot, gc, truncated=True)
         y = so3.apply_wigner_expand(d_blocks, y_rot, cfg.m_max)
         # attention-weight per head
-        y = y.reshape(*y.shape[:-1], heads, ch) * ac[:, None, :, None]
-        return y.reshape(*y.shape[:-2], c)
+        y = rows_reshape(y, (*y.shape[:-1], heads, ch)) \
+            * ac[:, None, :, None]
+        return rows_reshape(y, (*y.shape[:-2], c))
 
     e_total = s.shape[0]
     chunk = cfg.edge_chunk or GNNConfig.edge_chunk
@@ -197,7 +201,7 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
         for lo in range(0, e_total, chunk):
             sl = slice(lo, lo + chunk)
             y = conv_chunk(s[sl], dirs[sl], gates_all[sl], alpha[sl])
-            agg = agg.index_add(0, r[sl], y)
+            agg = seg.add_at(agg, r[sl], y)
     else:
         y = constrain(conv_chunk(s, dirs, gates_all, alpha), "edges", None,
                       None)
@@ -211,7 +215,7 @@ def _layer(lp, cfg: GNNConfig, h, graph, dirs, rbf):
     # ---- gated FFN ----
     f0 = nn.mlp_apply(lp["ffn_l0"], h[:, 0, :], activation="silu")
     gate = torch.sigmoid(nn.dense_apply(lp["ffn_gate"], h[:, 0, :]))
-    gate = gate.reshape(n, cfg.l_max, c)
+    gate = rows_reshape(gate, (n, cfg.l_max, c))
     hl = _per_l_mix(lp["ffn_mix"]["w"], cfg.l_max, h)
     upd = torch.cat([f0[:, None, :],
                      hl[:, 1:, :] * _expand_l(gate, cfg.l_max)], 1)
@@ -227,8 +231,8 @@ def _expand_l(per_l, l_max: int):
 
 def _per_l_mix(w, l_max: int, h):
     """Per-l channel mixing: w (l_max+1, C, C), h (N, K, C)."""
-    return torch.cat([xl @ w[l] for l, xl in enumerate(so3.split_l(h, l_max))],
-                     1)
+    return torch.cat([nn.dot(xl, w[l])
+                      for l, xl in enumerate(so3.split_l(h, l_max))], 1)
 
 
 def _equivariant_ln(scale, l_max: int, h, eps: float = 1e-5):

@@ -179,14 +179,18 @@ def _dz_blocks(l_max: int, ang):
     D^l is cos(m ang) on its diagonal and -sin(m ang) / sin(m ang) at
     (l+m, l-m) / (l-m, l+m): the diagonal of cos(m ang) over m = -l..l
     plus the anti-diagonal of -sin(m ang) (0 at its centre), built
-    without writing into a tensor autograd needs.
+    without writing into a tensor autograd needs: the diagonal's columns
+    taken in reverse (an ``index_select``, which DTensor shards where it
+    has no rule for ``flip``).
     """
     blocks = []
     for l in range(l_max + 1):
         m = torch.arange(-l, l + 1, dtype=ang.dtype, device=ang.device)
         m_ang = ang[..., None] * m
+        anti = torch.diag_embed(-torch.sin(m_ang))
+        rev = torch.arange(2 * l, -1, -1, device=ang.device)
         d = (torch.diag_embed(torch.cos(m_ang))
-             + torch.diag_embed(-torch.sin(m_ang)).flip(-1))
+             + anti.index_select(anti.dim() - 1, rev))
         blocks.append(d)
     return blocks
 

@@ -36,13 +36,16 @@ reference's six sharding constraints are in place
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.common import prng
 from repro_torch.configs.base import MoEConfig
 from repro_torch.nn import core as nn
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, on_whole, \
+    split_reshape
 
 
 def moe_shapes(moe: MoEConfig, d_model: int, d_ff: int) -> dict:
@@ -99,7 +102,14 @@ def dispatch_slots(expert_ids, moe: MoEConfig, c: int):
     """(T, k) expert ids -> (T * k,) buffer row of each assignment in
     (token, k) order: ``expert * c + position`` for the first ``c`` of
     each expert in priority order (token-major, then k), else the
-    sentinel ``E * c``."""
+    sentinel ``E * c``.  Sharded ids are gathered whole first
+    (``parallel.sharding.on_whole``: DTensor has no rule for
+    ``searchsorted``)."""
+    return on_whole(functools.partial(_dispatch_slots, moe=moe, c=c),
+                    expert_ids)
+
+
+def _dispatch_slots(expert_ids, moe: MoEConfig, c: int):
     e = moe.n_experts
     flat_e = expert_ids.reshape(-1)
     sorted_e, order = torch.sort(flat_e, stable=True)
@@ -129,8 +139,8 @@ def moe_apply(params, moe: MoEConfig, x, *, compute_dtype=torch.bfloat16,
 
     # --- sort-based dispatch ---
     slot = dispatch_slots(expert_ids, moe, c)                  # (T*k,)
-    dispatched = constrain(xc[:, None].expand(t, k, d).reshape(t * k, d),
-                           "tokens", None)
+    dispatched = constrain(split_reshape(xc[:, None].expand(t, k, d),
+                                         (t * k, d), 0, t), "tokens", None)
     buf = xc.new_zeros((e * c + 1, d)).index_copy(0, slot, dispatched)
     h = constrain(buf[:e * c].view(e, c, d), "expert", "expert_slot", None)
 
@@ -144,7 +154,8 @@ def moe_apply(params, moe: MoEConfig, x, *, compute_dtype=torch.bfloat16,
 
     # --- combine: the sentinel row gathers zeros ---
     y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
-    per_assign = constrain(y_flat[slot], "tokens", None).view(t, k, d)
+    per_assign = split_reshape(constrain(y_flat[slot], "tokens", None),
+                               (t, k, d), 0, t)
     out = (per_assign * gates.to(y.dtype)[..., None]).float().sum(1)
     out = constrain(out, "tokens", None)
     return out.to(cdt), aux

@@ -30,12 +30,15 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.fm_interaction import ops as fm_ops
 from repro_torch.nn.core import as_dtype
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, replicated, \
+    shard_block
 
 
 def field_offsets(cfg: RecsysConfig) -> np.ndarray:
@@ -93,11 +96,41 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     valid = (rows >= -n) & (rows < n)
     idx = torch.where(rows < 0, rows + n, rows)
     idx = torch.where(valid, idx, torch.zeros_like(idx))
+    fill = valid.reshape(valid.shape + (1,) * (table.dim() - 1))
+    if isinstance(table, DTensor):
+        # the fill applied always: no read back to the host inside a
+        # sharded step
+        return _take_sharded(table, idx).masked_fill(~fill, math.nan)
     out = table[idx]
     if bool(valid.all()):
         return out
-    fill = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
     return out.masked_fill(~fill, math.nan)
+
+
+def _take_sharded(table, idx):
+    """Rows ``idx`` of a row-sharded ``DTensor`` table, gathered as XLA's
+    partitioner gathers them: the ids whole on every rank, each rank's
+    rows taken from its own block of the table (zero for the others),
+    and the partial sums reduced onto the ids' own placements (a
+    reduce-scatter over the mesh dims that shard the ids, an all-reduce
+    over the rest).  DTensor's own rule for ``F.embedding`` from a
+    row-sharded table with sharded ids gathers the whole table; its
+    masked partial compares masks on the host."""
+    mesh = table.device_mesh
+    whole = replicated(idx).to_local() if isinstance(idx, DTensor) else idx
+    lo, n = shard_block(table.shape[0], mesh, table.placements, 0)
+    j = whole - lo
+    inside = (j >= 0) & (j < n)
+    rows = F.embedding(j.clamp(0, max(n - 1, 0)), table.to_local())
+    rows = torch.where(inside[..., None], rows, 0.0)
+    partial = DTensor.from_local(
+        rows, mesh, [Partial() if isinstance(p, Shard) else Replicate()
+                     for p in table.placements], run_check=False)
+    ids = (idx.placements if isinstance(idx, DTensor)
+           else (Replicate(),) * mesh.ndim)
+    return partial.redistribute(mesh, [
+        p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+        for p in ids])
 
 
 def _flat_rows(cfg: RecsysConfig, ids: torch.Tensor,

@@ -38,6 +38,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -49,7 +50,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.nn import core as nn
 from repro_torch.nn.attention import attention, scale_q
 from repro_torch.nn.rope import apply_rope, rope_cos_sin
-from repro_torch.parallel.sharding import constrain, replicated
+from repro_torch.parallel.sharding import constrain, flatten_ready, \
+    replicated, shard_block, split_reshape
 
 
 def padded_vocab(cfg: TransformerConfig, multiple: int = 256) -> int:
@@ -238,6 +240,69 @@ def _decode_attention(q, k_cache, v_cache, q_pos, kv_pos,
     return o.reshape(b, 1, h, d).to(v_cache.dtype)
 
 
+def _sharded_decode(q, k, v, k_cache, v_cache, slot_pos, cur,
+                    cfg: TransformerConfig):
+    """One layer's cache write and attention for a ``DTensor`` cache
+    (``parallel.sharding.kv_cache_shardings``), on each rank's local
+    shards: B5 is a launch on the card's own memory, which a ``DTensor``
+    cannot reach.
+
+    q (B, 1, H, D) and this step's k / v (B, 1, Hkv, D) are laid out as
+    the cache: the batch over the cache's batch mesh dims, the heads over
+    ``model`` where the cache shards its kv-heads (H = G x Hkv heads kept
+    in kv-head order, so each rank's q heads are the groups of its kv
+    heads).  Each rank writes its sequences' rows into its shard of the
+    cache and runs B5 on it; the output comes back as a ``DTensor`` of
+    q's placements.
+
+    * kv-heads sharded: each rank holds whole sequences of its batch
+      rows and heads, so the local B5 is exact.
+    * sequence sharded (the ``kvlen`` fallback, e.g. 8 kv heads on a
+      16-way ``model``): a rank writes a row only where its block of the
+      sequence holds the slot, and the sequence is then GATHERED whole
+      (an all-gather of this layer's cache over the sequence's mesh
+      dims) for B5.  Combining per-rank partials instead would need B5's
+      softmax carries (max, sum), which its interface does not return.
+    """
+    mesh = k_cache.device_mesh
+    cpl = tuple(k_cache.placements)
+    if tuple(slot_pos.placements)[:1] != cpl[:1] \
+            or tuple(cur.placements) != tuple(slot_pos.placements):
+        raise ValueError(f"slot_pos {slot_pos.placements} and pos "
+                         f"{cur.placements} must share the cache's batch "
+                         f"placements {cpl}")
+    qpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                else Replicate() for p in cpl)
+    q, k, v = (x if tuple(x.placements) == qpl
+               else x.redistribute(mesh, qpl) for x in (q, k, v))
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    c = cur.to_local()
+    t = slot_pos.shape[1]
+    slot = (c % t).long()
+    ar = torch.arange(kc.shape[0], device=kc.device)
+    k_new = k.to_local()[:, 0].to(kc.dtype)
+    v_new = v.to_local()[:, 0].to(vc.dtype)
+    seq = [i for i, p in enumerate(cpl) if isinstance(p, Shard)
+           and p.dim == 1]
+    if seq:
+        lo, n = shard_block(t, mesh, cpl, 1)
+        j = slot - lo
+        mine = ((j >= 0) & (j < n))[:, None, None]
+        j = j.clamp(0, max(n - 1, 0))
+        kc[ar, j] = torch.where(mine, k_new, kc[ar, j])
+        vc[ar, j] = torch.where(mine, v_new, vc[ar, j])
+        whole = tuple(Replicate() if i in seq else p
+                      for i, p in enumerate(cpl))
+        kc, vc = (DTensor.from_local(x, mesh, cpl, run_check=False)
+                  .redistribute(mesh, whole).to_local() for x in (kc, vc))
+    else:
+        kc[ar, slot] = k_new
+        vc[ar, slot] = v_new
+    o = _decode_attention(q.to_local(), kc, vc, c, slot_pos.to_local(), cfg)
+    return DTensor.from_local(o, mesh, qpl, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
                 kv_chunk=None, q_chunk=None):
     """h: (B, S, d) -> (attn_out, kv); ``rope`` = the (cos, sin) tables of
@@ -256,9 +321,12 @@ def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
     hd, n_q, n_kv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
 
     x = nn.rmsnorm_apply(lp["attn_norm"], h)
-    q = _dense(lp["attn"]["wq"], x, cdt).reshape(b, s, n_q, hd)
-    k = _dense(lp["attn"]["wk"], x, cdt).reshape(b, s, n_kv, hd)
-    v = _dense(lp["attn"]["wv"], x, cdt).reshape(b, s, n_kv, hd)
+    q = split_reshape(_dense(lp["attn"]["wq"], x, cdt), (b, s, n_q, hd), 2,
+                      n_q)
+    k = split_reshape(_dense(lp["attn"]["wk"], x, cdt), (b, s, n_kv, hd),
+                      2, n_kv)
+    v = split_reshape(_dense(lp["attn"]["wv"], x, cdt), (b, s, n_kv, hd),
+                      2, n_kv)
 
     cos, sin = rope
     q = apply_rope(q, cos, sin)
@@ -270,10 +338,14 @@ def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
         # Functional cache updates: the reference rewrites the cache with
         # .at[].set per layer; the port writes this step's row in place.
         k_cache, v_cache, slot_pos, rows = cache
-        k_cache[rows] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows] = v[:, 0].to(v_cache.dtype)
-        o = _decode_attention(q, k_cache, v_cache, q_pos[:, 0], slot_pos,
-                              cfg)
+        if isinstance(k_cache, DTensor):
+            o = _sharded_decode(q, k, v, k_cache, v_cache, slot_pos,
+                                q_pos[:, 0], cfg)
+        else:
+            k_cache[rows] = k[:, 0].to(k_cache.dtype)
+            v_cache[rows] = v[:, 0].to(v_cache.dtype)
+            o = _decode_attention(q, k_cache, v_cache, q_pos[:, 0],
+                                  slot_pos, cfg)
         kv_out = (k_cache, v_cache)
     else:
         o = attention(q, k, v, q_pos=q_pos, kv_pos=q_pos, causal=True,
@@ -281,7 +353,8 @@ def _attn_block(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
                       q_chunk=q_chunk)
         kv_out = (k, v)
     o = constrain(o, "batch", None, "heads", None)
-    out = _dense(lp["attn"]["wo"], o.reshape(b, s, n_q * hd), cdt)
+    out = _dense(lp["attn"]["wo"],
+                 split_reshape(o, (b, s, n_q * hd), 2, n_q), cdt)
     return out, kv_out
 
 
@@ -306,11 +379,13 @@ def _layer_fn(lp, cfg: TransformerConfig, h, q_pos, rope, *, cache=None,
     x = nn.rmsnorm_apply(lp["ffn_norm"], h)
     if cfg.moe is not None:
         b, s, d = x.shape
-        xt = constrain(x.reshape(b * s, d), "tokens", None)
+        xt = constrain(flatten_ready(x, 0, 1).reshape(b * s, d), "tokens",
+                       None)
         y, aux = moe_lib.moe_apply(lp["moe"], cfg.moe, xt,
                                    compute_dtype=cdt,
                                    activation=cfg.activation)
-        y = y.reshape(b, s, d)
+        # its grad is flattened back by the view's backward
+        y = flatten_ready(split_reshape(y, (b, s, d), 0, b), 0, 1)
         if cfg.moe.dense_residual:
             y = y + _dense_ffn(lp["ffn"], cfg, x)
     else:
@@ -399,8 +474,13 @@ def _chunk_nll(h_chunk, labels_chunk, head_w):
     logits = nn.dot(h_chunk, head_w).float()                 # (B, sc, V)
     logits = constrain(logits, "tokens", None, None)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels_chunk.clamp_min(0).long()[..., None])[..., 0]
+    idx = labels_chunk.clamp_min(0).long()[..., None]
+    if isinstance(logits, DTensor):
+        # the ids laid out as the logits' rows: a local gather, where
+        # DTensor may shard the vocab and mask (a rule that fails on the
+        # 2 x 16 x 16 mesh)
+        idx = idx.redistribute(logits.device_mesh, logits.placements)
+    gold = torch.gather(logits, -1, idx)[..., 0]
     mask = (labels_chunk >= 0).float()
     return ((logz - gold) * mask).sum(), mask.sum()
 
@@ -481,11 +561,18 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
     # The rolling SWA cache: slot pos % T, slot_pos updated before the
     # layers run; entries past the window are masked by
     # (q_pos - kv_pos) < window, in the reference and in B5 alike.
-    rows = (torch.arange(b, device=tokens.device), (cur % t).long())
+    if isinstance(cache["k"], DTensor):
+        # each rank writes its own sequences' slots (_sharded_decode)
+        rows = None
+        sp = cache["slot_pos"].to_local()
+        c = cur.to_local()
+        sp[torch.arange(sp.shape[0], device=sp.device), (c % t).long()] = c
+    else:
+        rows = (torch.arange(b, device=tokens.device), (cur % t).long())
+        cache["slot_pos"][rows] = cur
     h = constrain(_embed(params, tokens[:, None], cdt), "batch", None, None)
     q_pos = cur[:, None]
     rope = rope_cos_sin(q_pos, cfg.head_dim_, cfg.rope_theta)
-    cache["slot_pos"][rows] = cur
     for i in range(cfg.n_layers):
         h, _, _ = _layer_fn(_layer(params["layers"], i), cfg, h, q_pos,
                             rope, cache=(cache["k"][i], cache["v"][i],

@@ -42,6 +42,14 @@ Non-divisible cases (e.g. 56 heads over a 16-way ``model``) are allowed
 in ``constrain`` (``DTensor`` shards unevenly); ``param_shardings`` and
 the other state shardings trim to a dividing prefix (``divisible_spec``),
 as the reference does for ``jit``'s in_shardings.
+
+Redistribution seams stand where XLA's partitioner would reshard and
+DTensor (torch 2.11, 2.13, or both) refuses or miscounts:
+``flatten_ready`` (a product's flattened leading axes), ``split_reshape``
+(a view that splits heads or tokens off a sharded dim), ``rows_reshape``
+(a view of edge / node rows), ``replicated`` and ``on_whole`` (an op
+without a DTensor rule, run on whole values).  Each also readies the
+grad for the view's backward where a view is involved.
 """
 
 from __future__ import annotations
@@ -222,15 +230,17 @@ def constrain(x, *logical_axes):
 
 
 def _whole_inner(x, start: int, end: int):
-    """``x`` with dims ``start+1..end`` whole: ``Replicate`` on the mesh
-    dims that shard them."""
+    """``x`` with dims ``start+1..end`` whole (``Replicate`` on the mesh
+    dims that shard them) and dim ``start`` evenly sharded (over the mesh
+    dims whose running product divides it: DTensor's view of an uneven
+    shard computes the wrong local shape)."""
     inner = range(start + 1, end + 1)
     placements = tuple(
         Replicate() if isinstance(p, Shard) and p.dim % x.ndim in inner
         else p for p in x.placements)
-    if placements == tuple(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, placements)
+    if placements != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    return _parts_whole(x, start, x.shape[start])
 
 
 class _WholeInnerGrad(torch.autograd.Function):
@@ -252,16 +262,109 @@ def flatten_ready(x, start: int, end: int):
     """``x`` ready for a view that flattens its dims ``start..end``, and
     its grad ready for the same in the backward: a ``DTensor`` sharded on
     any of dims ``start+1..end`` is redistributed so those dims are whole
-    (``Replicate`` on their mesh dims); ``start`` may stay sharded.  A
-    redistribution seam: ``DTensor`` before torch 2.13 refuses such a
-    view (2.13 keeps it as a strided shard), where XLA's partitioner
-    would all-gather.  A plain tensor is returned as it is."""
+    (``Replicate`` on their mesh dims); ``start`` may stay sharded where
+    its shards are even (128 tokens or 3,840 nodes over 512 ranks are
+    not: those mesh dims are made whole too).  A redistribution seam:
+    ``DTensor`` before torch 2.13 refuses such a view (2.13 keeps it as a
+    strided shard), where XLA's partitioner would all-gather.  A plain
+    tensor is returned as it is."""
     if not isinstance(x, DTensor):
         return x
     x = _whole_inner(x, start, end)
     if x.requires_grad:
         x = _WholeInnerGrad.apply(x, start, end)
     return x
+
+
+def _parts_whole(x, dim: int, parts: int):
+    """``x`` with dim ``dim`` sharded only over the mesh dims (in mesh
+    order) whose running product of sizes divides ``parts``, and whole
+    (``Replicate``, an all-gather) on the others."""
+    d = dim % x.ndim
+    mesh = x.device_mesh
+    cut, prod = [], 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == d:
+            if cut or parts % (prod * mesh.size(i)):
+                cut.append(i)
+            else:
+                prod *= mesh.size(i)
+    if not cut:
+        return x
+    return x.redistribute(mesh, tuple(
+        Replicate() if i in cut else p for i, p in enumerate(x.placements)))
+
+
+class _PartsWholeGrad(torch.autograd.Function):
+    """Identity whose backward makes the incoming grad's dim whole where
+    its shard would cut one of ``parts``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, parts):
+        ctx.cut = (dim, parts)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _parts_whole(g, *ctx.cut), None, None
+
+
+def _rows_only(x):
+    """``x`` sharded on dim 0 alone, evenly (``_parts_whole``), and whole
+    on every other dim; partial sums are left as they are."""
+    placements = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.ndim
+                       else p for p in x.placements)
+    if placements != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    return _parts_whole(x, 0, x.shape[0])
+
+
+class _RowsOnlyGrad(torch.autograd.Function):
+    """Identity whose backward lays the incoming grad out by rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_only(g)
+
+
+def rows_reshape(x, shape):
+    """``x.reshape(shape)`` for a view that keeps dim 0 (the rows: edges,
+    nodes) and regroups the others, both ways: a ``DTensor`` is laid out
+    by rows (dim 0 evenly sharded, every other dim whole) before the
+    view, and the grad of the result likewise before the view's
+    backward.  A redistribution seam: DTensor refuses a view that splits
+    or merges a sharded dim, or computes the wrong local shape for an
+    uneven one (torch 2.11 and 2.13), where XLA's partitioner reshards.
+    A plain tensor is only reshaped."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    y = _rows_only(x).reshape(shape)
+    if y.requires_grad:
+        y = _RowsOnlyGrad.apply(y)
+    return y
+
+
+def split_reshape(x, shape, dim: int, parts: int):
+    """``x.reshape(shape)`` for a view that splits dim ``dim`` of ``x``
+    into ``parts`` x the rest, or that flattens ``parts`` (dim ``dim`` of
+    ``x``) with the dims after it, both ways: a ``DTensor`` that shards
+    that dim over mesh dims whose sizes do not divide ``parts`` (8 kv
+    heads, or 56 heads, over a 16-way ``model`` axis) has it made whole
+    there (``Replicate``, an all-gather) before the view, and the grad
+    of the result likewise before the view's backward.  A redistribution
+    seam: DTensor refuses a view that would cut a part or flatten an
+    uneven shard, where XLA's partitioner reshards.  A plain tensor is
+    only reshaped."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    y = _parts_whole(x, dim, parts).reshape(shape)
+    if y.requires_grad:
+        y = _PartsWholeGrad.apply(y, dim, parts)
+    return y
 
 
 def replicated(x):
@@ -274,6 +377,38 @@ def replicated(x):
     whole = (Replicate(),) * x.device_mesh.ndim
     return x if tuple(x.placements) == whole else x.redistribute(
         x.device_mesh, whole)
+
+
+def shard_block(n: int, mesh, placements, dim: int) -> tuple:
+    """(start, size) of this rank's block of a dim of ``n`` sharded by
+    ``placements``: ``torch.chunk``'s split, mesh dim by mesh dim, as
+    DTensor lays out its shards."""
+    lo, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            step = -(-size // mesh.size(i))
+            lo += coord[i] * step
+            size = max(0, min(step, size - coord[i] * step))
+    return lo, size
+
+
+def on_whole(fn, *args):
+    """``fn(*args)`` on the whole values of its ``DTensor`` args, on every
+    rank: each is gathered (``replicated``) and handed to ``fn`` as its
+    local tensor, and the result comes back replicated on the mesh
+    (``from_local``; both ways differentiable).  A redistribution seam
+    for an op that DTensor has no rule for (``scatter_reduce``), where
+    XLA's partitioner would gather too.  Without a ``DTensor`` among the
+    args, ``fn(*args)``."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    out = fn(*(replicated(a).to_local() if isinstance(a, DTensor) else a
+               for a in args))
+    return DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
