@@ -8,7 +8,8 @@ non-zero on any failure:
 1. the card (``nvidia-smi`` name and power limit), the torch, CUDA and
    ``nvcc`` versions, and the five kernels' build from the sources in the
    checkout (one ``nvcc`` per source, all started together), with each
-   kernel's registers and spills, and no spills in the register-resident
+   kernel's registers and spills (read by ``repro_torch.analysis.
+   kernel_audit``'s ptxas parser), and no spills in the register-resident
    JEDI kernels that jedi_30p and jedi_50p run;
 2. every kernel against its plain PyTorch version on the card, and two
    launches bitwise equal, with the design each JEDI case runs:
@@ -272,12 +273,27 @@ non-zero on any failure:
      what the step adds to them (15% each).  B5's launches here join
      its main-path count (``launches_by_phase["cells"]``).
 
+13. the static analysis, ``python -m repro_torch.analysis --json --arch
+   jedi_30p,jedi_50p,jedi_tracks_128`` in-process on the card: the five
+   lint rules over the checkout, and the kernel-contract audit, which
+   holds every registered kernel path at every rung of its ladder
+   against the plan its wrapper launches, reads the five libraries'
+   ptxas reports, resource usage and SASS (``cuobjdump`` beside
+   ``nvcc``) and runs each registered path's forward once at its
+   smallest rung (a kernel path launching its kernel once, the others
+   none).  Exit status 0 and no finding; every library's ptxas report
+   read; HMMA instructions found (each accumulating in F32, else a
+   finding); the tightest register allocation of any plan printed.  The
+   audit's launches join B1's, B2's and B3's counts
+   (``launches_by_phase["analysis"]``).
+
 Before the last line it prints a ``training: {...}`` line with phase
 6's numbers, an ``lm: {...}`` line with phase 7's, a ``moe: {...}``
 line with phase 8's, an ``lm_training: {...}`` line with phase 9's, a
 ``gnn: {...}`` line with phase 10's, a ``multidevice: {...}`` line with
-phase 11's, a ``cells: {...}`` line with phase 12's and one JSON object
-with each kernel's numbers; the last line is ``{"ok": true, "device":
+phase 11's, a ``cells: {...}`` line with phase 12's, an ``analysis:
+{...}`` line with phase 13's and one JSON object with each kernel's
+numbers; the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -287,10 +303,10 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import pathlib
-import re
 import subprocess
 import sys
 import time
@@ -340,22 +356,6 @@ def err_of(out, ref) -> tuple[float, float]:
     err = float((out.float() - ref.float()).abs().max())
     scale = max(1.0, float(ref.float().abs().max()))
     return err, err / scale
-
-
-def kernel_name(mangled: str) -> str:
-    """A ptxas report's mangled kernel name, short: the identifier and its
-    template arguments (``jedi_fused_full_warp_kernel<20,0>``)."""
-    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
-    if m is None:
-        return mangled
-    n = int(m.group(1))
-    ident, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
-    if not rest.startswith("I"):
-        return ident
-    args = ["bf16" if "bfloat16" in rest else "f32"] \
-        if rest.startswith(("If", "I13")) else []
-    args += re.findall(r"L[ib](\d+)E", rest)
-    return f"{ident}<{','.join(args)}>"
 
 
 def card_line() -> str:
@@ -3742,6 +3742,70 @@ def _card_cell(label, prog, args, dargs, entry, mesh, decode, dev, card,
     return res
 
 
+# ---- phase 13: the static analysis on the card ------------------------------
+
+#: The configs phase 13 audits: the three JEDI widths whose kernels the
+#: earlier phases launch (B1-B3 plans of every design).
+ANALYSIS_ARCHS = ("jedi_30p", "jedi_50p", "jedi_tracks_128")
+
+
+def static_analysis(card: str, kernels) -> dict:
+    """``python -m repro_torch.analysis --json --arch ...`` in-process on
+    the card (phase 13): the lint rules and the kernel-contract audit,
+    whose card half reads the five libraries' ptxas reports and SASS and
+    runs each registered path's forward once at its smallest rung.
+    Requires exit status 0 and no finding; returns the phase's numbers,
+    with the launches of the audit's forwards (the counts set to 0 just
+    before the run and read just after) under ``launches``."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+    print("== 13. static analysis: lint + kernel-contract audit on the card")
+    zero_counts(kernels)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main(["--json", "--arch", ",".join(ANALYSIS_ARCHS)])
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.counter.launches for k in kernels}
+    doc = json.loads(out.getvalue())
+    audit = doc.get("audit", {})
+    for f in doc["findings"]:
+        print(f"  [{f['rule']}] {f['location']}: {f['message']}")
+    check(rc == 0 and doc["count"] == 0,
+          f"analysis: {doc['count']} finding(s), exit status {rc}")
+    check(audit.get("device") == "cuda", f"the audit ran on "
+          f"{audit.get('device')} (the card's checks need cuda)")
+    ptxas = audit.get("ptxas_functions", {})
+    check(len(ptxas) == len(kernels) and all(ptxas.values()),
+          f"ptxas reports read for every library: {ptxas}")
+    check(audit.get("hmma_checked", 0) > 0,
+          f"{audit.get('hmma_checked', 0)} HMMA instructions checked, all "
+          "accumulating in F32")
+    audited = audit.get("audited", {})
+    check(all(audited.get(a, {}).get("paths") == 9 for a in ANALYSIS_ARCHS),
+          f"containment held for the 9 registered paths at each config: "
+          f"{audited}")
+    # one forward per kernel path and config: fused_full and
+    # int8_fused_full (B1), jedi_linear_full and int8_jedi_linear_full
+    # (B2), fused (B3)
+    want = {"fused_jedinet_full": 2 * len(ANALYSIS_ARCHS),
+            "jedi_linear_full": 2 * len(ANALYSIS_ARCHS),
+            "fused_jedinet_edge": len(ANALYSIS_ARCHS),
+            "fm_interaction": 0, "flash_decode": 0}
+    check(launches == want, f"the audit's forwards launched {launches}")
+    tight = audit.get("tightest_registers", {})
+    print(f"  {doc['count']} findings in {seconds:.1f} s (lint "
+          f"{doc['timings'].get('lint_s')} s, audit "
+          f"{doc['timings'].get('audit_s')} s); tightest register "
+          f"allocation {tight.get('allocated')} of {tight.get('of')} "
+          f"({tight.get('function')}, {tight.get('threads')} threads, "
+          f"{tight.get('plan')})  [{card}]")
+    return {"rules": doc.get("rules", []), "findings": doc["count"],
+            "audited": audited, "ptxas_functions": ptxas,
+            "hmma_checked": audit.get("hmma_checked"),
+            "tightest_registers": tight, "timings": doc["timings"],
+            "seconds": seconds, "launches": launches, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3749,6 +3813,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.analysis import kernel_audit as KA
         from repro_torch.configs import jedi_30p, jedi_50p, jedi_tracks_128
         from repro_torch.core import interaction_net as inet
         from repro_torch.core import paths
@@ -3846,16 +3911,15 @@ def main() -> int:
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s")
     spills = {}
     for k in kernels:
+        log = build.build_log(*k.lib)
         fn = ""
-        for line in build.build_log(*k.lib).splitlines():
+        for line in log.splitlines():
             if "Function properties for" in line:
-                fn = kernel_name(line.split()[-1])
+                fn = KA.kernel_name(line.split()[-1])
             if "registers" in line or "spill" in line:
                 print(f"  {k.name} {fn}: {line.strip()}")
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            if m:
-                spills[fn] = int(m.group(1)) + int(m.group(2))
+        spills.update({f: e.spill_bytes
+                       for f, e in KA.parse_ptxas(log).items()})
     # the register-resident designs at jedi_30p (RW 20, one sender tile)
     # and jedi_50p (RW 64, two tiles), and B2's rows design (one kernel per
     # activation)
@@ -4196,6 +4260,16 @@ def main() -> int:
     rows[4]["launches_by_phase"]["cells"] = cells.pop("b5_launches")
     rows[4]["launches"] = sum(rows[4]["launches_by_phase"].values())
     print("cells: " + json.dumps(cells))
+
+    # ---- 13. the static analysis ------------------------------------------
+    an = static_analysis(card, kernels)
+    for i, k in enumerate(kernels):
+        if an["launches"][k.name]:
+            rows[i].setdefault("launches_by_phase", {
+                "main_paths": rows[i]["launches"]})
+            rows[i]["launches_by_phase"]["analysis"] = an["launches"][k.name]
+            rows[i]["launches"] += an["launches"][k.name]
+    print("analysis: " + json.dumps(an))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",

@@ -63,6 +63,12 @@ def _bind_int8(qparams, cfg):
     return fused_ops.bind_full(qparams, cfg)
 
 
+def _full_layout(cfg, qparams):
+    """The launch B1 runs for these widths (its bucket model)."""
+    from repro_torch.kernels.fused_jedinet import autotune
+    return autotune.full_layout_for(cfg, qparams)
+
+
 @register_path(
     name="int8_fused_full",
     ref=_ref_int8,
@@ -74,6 +80,8 @@ def _bind_int8(qparams, cfg):
     tolerance=INT8_TOLERANCE,
     quantized=True,
     weight_bytes=1,                   # int8 in device memory, upcast on-chip
+    per_sample_bytes=lambda cfg, p: _full_layout(cfg, p).batch_bytes,
+    reserved_bytes=lambda cfg, p: _full_layout(cfg, p).reserved_bytes,
     # int8_fused_full -> fused_full -> sr_split
     fallback="fused_full",
     complexity="O(N^2)",

@@ -269,6 +269,11 @@ def _bind_full(params, cfg):
     return fused_ops.bind_full(params, cfg)
 
 
+def _full_layout(cfg, params):
+    from repro_torch.kernels.fused_jedinet import autotune
+    return autotune.full_layout_for(cfg, params)
+
+
 # ---------------------------------------------------------------------------
 # Path registration (see core/paths.py).
 # ---------------------------------------------------------------------------
@@ -300,6 +305,8 @@ paths.register(paths.PathSpec(
     name="fused_full", forward=forward_fused_full, ref=forward_sr,
     fused_level="full", cuda=True, tolerance=5e-4,
     bind_params=_bind_full,
+    per_sample_bytes=lambda cfg, p: _full_layout(cfg, p).batch_bytes,
+    reserved_bytes=lambda cfg, p: _full_layout(cfg, p).reserved_bytes,
     complexity="O(N^2)", fallback="sr_split",
     description="whole-network CUDA kernel: x -> logits on-chip"))
 

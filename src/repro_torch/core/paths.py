@@ -93,7 +93,7 @@ class PathSpec:
     def bucket_bytes(self, cfg, params) -> int:
         """Per-event shared-memory bytes of the path's kernel, which
         drive the serving bucket ladder: the ``per_sample_bytes`` hook,
-        else the whole-network kernel's (B1) layout."""
+        else the whole-network kernel's (B1) team layout."""
         if self.per_sample_bytes is not None:
             return int(self.per_sample_bytes(cfg, params))
         from repro_torch.kernels.fused_jedinet import autotune
@@ -102,7 +102,7 @@ class PathSpec:
     def reserved_smem_bytes(self, cfg, params) -> int:
         """Shared memory a block spends before its first event: the
         weights (upcast to fp32 as they land) and the per-team scratch;
-        the ``reserved_bytes`` hook, else B1's layout.  ``params`` must
+        the ``reserved_bytes`` hook, else B1's team layout.  ``params`` must
         already be transformed (:meth:`prepare_params`)."""
         if self.reserved_bytes is not None:
             return int(self.reserved_bytes(cfg, params))

@@ -216,9 +216,11 @@ def plan_launch(n_objects: int, n_features: int, fr_widths, fo_widths=(),
 
 def layout_for(cfg, params, *, block_s: int | None = None) -> Layout:
     """:func:`plan_launch` for a config and its (raw or quantized) params:
-    the team layout, whose per-event bytes and reservation set the
-    ``fused_full`` bucket ladder (B1's warp design has no batch tile: it
-    takes any batch, one event per block at a time)."""
+    the team layout, whose per-event bytes and reservation size the
+    buckets of the paths that declare no bucket model of their own
+    (``PathSpec.bucket_bytes``).  The kernel paths take the launch they
+    run: ``fused_full`` :func:`full_layout_for`, ``fused``
+    :func:`edge_layout_for`."""
     return plan_launch(cfg.n_objects, cfg.n_features,
                        mlp_widths(params["fr"]), mlp_widths(params["fo"]),
                        mlp_widths(params["phi"]), block_s=block_s)

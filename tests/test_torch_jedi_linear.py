@@ -316,12 +316,16 @@ def test_ladder_comes_from_b2s_layout():
 
 
 def test_fused_full_ladder_is_unchanged():
-    """B1's ladder at jedi_30p as the first slice derived it."""
+    """B1's ladder at jedi_30p as the first slice derived it, now sized by
+    the launch B1 runs (the warp design: no batch tile) and not by the
+    team layout it no longer launches there."""
+    from repro_torch.kernels.fused_jedinet import autotune as fj_tune
     _, tcfg, _, tp, _ = _setup("30p", 1)
     spec = tpaths.get("fused_full")
-    assert spec.per_sample_bytes is None and spec.reserved_bytes is None
-    assert spec.bucket_bytes(tcfg, tp) == 15936
-    assert spec.reserved_smem_bytes(tcfg, tp) == 90736
+    lay = fj_tune.full_layout_for(tcfg, tp)
+    assert lay.design == "warp"
+    assert spec.bucket_bytes(tcfg, tp) == lay.batch_bytes == 0
+    assert spec.reserved_smem_bytes(tcfg, tp) == lay.reserved_bytes == 24304
     assert spec.bucket_ladder(tcfg, tp, 256) == [8, 16, 32, 64, 128, 256]
 
 

@@ -27,6 +27,8 @@ from repro.launch import serve as jserve
 from repro.models import transformer as jtfm
 from repro.serving import lm as jlm
 from repro_torch import bridge
+from repro_torch.analysis.config import AnalysisConfig as PortAnalysisConfig
+from repro_torch.analysis.rules.thin_cli import ThinCliRule as PortThinCliRule
 from repro_torch.configs.registry import get_arch
 from repro_torch.examples import serve_lm
 from repro_torch.launch import serve
@@ -278,13 +280,17 @@ def test_example_serves_on_the_cpu(capsys):
 
 
 def test_serve_cli_stays_thin():
-    """The reference's thin-CLI rule over the port's shell, and its one
-    framework import is the port's serving package."""
+    """The reference's thin-CLI rule over the port's shell, the port's
+    own rule over both of its shells, and the shell's one framework
+    import is the port's serving package."""
     rel = "src/repro_torch/launch/serve.py"
     config = AnalysisConfig()
     config.options["thin-cli"] = {"paths": [rel]}
     findings = run_lint(REPO, [ThinCliRule()], config)
     assert findings == [], "\n".join(f.render() for f in findings)
+    # the port's own rule, at its default scope (both of the port's CLIs)
+    port = run_lint(REPO, [PortThinCliRule()], PortAnalysisConfig())
+    assert port == [], "\n".join(f.render() for f in port)
     tree = ast.parse((REPO / rel).read_text())
     mods = [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     mods += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
