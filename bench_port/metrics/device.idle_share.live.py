@@ -1,0 +1,8 @@
+"""The card's idle share of the traced slice, in percent: one minus the
+union of its kernel, copy and set intervals over the slice."""
+
+
+def read(m):
+    if m.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - m.trace.busy_s / m.trace.window_s)
