@@ -92,13 +92,22 @@ def _synchronize(out) -> None:
         sync()
 
 
-def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``: a pinned staging copy and a
-    ``non_blocking`` transfer for CUDA, the array's own memory on CPU."""
+def stage(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> the host tensor the copy to ``device`` reads: a
+    pinned staging copy for CUDA, the array's own memory otherwise."""
     t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A staged host tensor on ``device``: a ``non_blocking`` transfer for
+    CUDA, the tensor itself otherwise."""
+    return t.to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device`` (:func:`stage`, then :func:`h2d`)."""
+    return h2d(stage(x, device), device)
 
 
 class _DoubleBuffer:
@@ -237,7 +246,9 @@ class PendingResult:
 
     ``result()`` waits (once), records metrics per chunk, and returns the
     host logits.  Recorded latency is dispatch-to-realization; KGPS wall
-    time is overlap-safe in any realization order.
+    time is overlap-safe in any realization order.  Each chunk's wait
+    and its copy to the host are the spans ``core.wait`` and
+    ``core.d2h``.
     """
 
     def __init__(self, engine, chunks, *, record: bool = True):
@@ -277,14 +288,17 @@ class PendingResult:
                         else time.perf_counter() + timeout_s)
             outs = []
             t_first, t_last, events = None, None, 0
+            span = self._engine.metrics.span
             for out, n_valid, bucket, t0 in self._chunks:
-                self._wait_ready(out, deadline)
+                with span("core.wait"):
+                    self._wait_ready(out, deadline)
                 t1 = time.perf_counter()
                 if self._record:
                     self._engine.metrics.record_batch(t1 - t0, n_valid, bucket)
                 t_first = t0 if t_first is None else t_first
                 t_last, events = t1, events + n_valid
-                outs.append(np.asarray(out)[:n_valid])
+                with span("core.d2h"):
+                    outs.append(np.asarray(out)[:n_valid])
             if self._record and t_first is not None:
                 self._engine._record_wall_window(t_first, t_last, events)
             self._out = np.concatenate(outs, axis=0)
@@ -416,6 +430,9 @@ class ExecutionCore:
         arms the realization watchdog (sync path).  ``bucket`` pins the
         bucket instead of resolving it from the row count: the sentinel's
         canaries ride one bucket's cached callable with a small batch.
+        Each chunk's host batch (pad and staging copy), its copy to the
+        device and its launch are the spans ``core.stage``, ``core.h2d``
+        and ``core.launch``.
         """
         x = np.asarray(x)
         pin = bucket
@@ -428,6 +445,7 @@ class ExecutionCore:
                     f"request of {x.shape[0]} rows cannot ride pinned "
                     f"bucket {pin}")
         top = self.bucket_sizes[-1]
+        span = self.metrics.span
         chunks = []
         for i in range(0, x.shape[0], top):
             if len(chunks) >= MAX_INFLIGHT_CHUNKS:
@@ -443,8 +461,12 @@ class ExecutionCore:
                     chunk, path=self.workload.name, bucket=bucket)
             fn = self.compiled_for(bucket)
             t0 = time.perf_counter()
-            xd = to_device(self._pad(chunk, bucket), self.device)
-            out = DeviceResult(fn(xd))                   # async dispatch
+            with span("core.stage"):
+                xh = stage(self._pad(chunk, bucket), self.device)
+            with span("core.h2d"):
+                xd = h2d(xh, self.device)
+            with span("core.launch"):
+                out = DeviceResult(fn(xd))               # async dispatch
             if self.injector is not None:
                 out = self.injector.wrap_output(out, path=self.workload.name,
                                                 bucket=bucket)

@@ -28,6 +28,15 @@ with the three properties a live front-end owes its operators:
   ServingMetrics.gauge` (``queue_depth``, ``queue_requests``,
   ``inflight_plans``) next to the engine's monotonic shed/demotion
   counters, all in the same ``snapshot()``.
+* **per-request stages** — while a profiler records, each request
+  submitted meanwhile is stamped on the loop's clock at its submit, at
+  the cut of the plan that takes its last events, at that plan's
+  dispatch and when its future turns done; a request served in full
+  then adds its three stages to the span counters
+  (:meth:`~repro_torch.serving.metrics.ServingMetrics.interval`):
+  ``loop.queued`` (submit to cut: the wait for a full bucket or the
+  fuse), ``loop.blocked`` (cut to dispatch: the wait for an in-flight
+  slot) and ``loop.inflight`` (dispatch to done).
 
 The loop is engine-agnostic: anything with ``bucket_sizes``,
 ``metrics`` and ``run_plan(plan, sync=False) -> handle`` serves — the
@@ -51,6 +60,7 @@ import time
 import numpy as np
 
 from repro_torch.serving.batcher import DeadlineBatcher
+from repro_torch.serving.metrics import tracing
 
 
 class RequestFuture:
@@ -110,8 +120,23 @@ class RequestFuture:
         self._shed += n_events
 
 
+class _Stamps:
+    """A traced request's stage boundaries on the loop's clock."""
+
+    __slots__ = ("t_submit", "uncut", "t_cut", "t_dispatch")
+
+    def __init__(self, t_submit: float, n_events: int):
+        self.t_submit = t_submit
+        self.uncut = n_events            # events not yet cut into a plan
+        self.t_cut = None
+        self.t_dispatch = None
+
+
 class ServingLoop:
-    """Single-threaded event loop: submit -> batch -> dispatch -> deliver."""
+    """Single-threaded event loop: submit -> batch -> dispatch -> deliver.
+
+    The loop's clock drives its batcher: every call into the batcher
+    passes the loop's reading as ``now``."""
 
     def __init__(self, engine, *, deadline_s: float = 2e-3,
                  max_inflight: int = 4, batcher: DeadlineBatcher | None = None,
@@ -129,6 +154,7 @@ class ServingLoop:
         self.max_inflight = int(max_inflight)
         self._inflight: list[tuple[int, object, object]] = []  # (seq, h, plan)
         self._futures: dict[int, RequestFuture] = {}
+        self._stamps: dict[int, _Stamps] = {}   # rid -> stages, traced only
         self._next_rid = 0
         self._next_seq = 0
 
@@ -163,12 +189,15 @@ class ServingLoop:
         fut = RequestFuture(rid, x.shape[0])
         self._futures[rid] = fut
         self.metrics.incr("loop_requests")
-        plans = self.batcher.submit(rid, x, deadline_s=deadline_s)
+        now = self._clock()
+        plans = self.batcher.submit(rid, x, now=now, deadline_s=deadline_s)
+        if tracing():
+            self._stamps[rid] = _Stamps(now, x.shape[0])
         # instantaneous backlog INCLUDING what this submission just cut —
         # the high-water mark capacity planning reads (gauge_max)
         self.metrics.gauge("queue_depth", self.batcher.pending_events
                            + sum(p.n_valid for p in plans))
-        self._dispatch(plans)
+        self._dispatch(plans, now)
         self._reap()
         self._update_gauges()
         return fut
@@ -176,31 +205,61 @@ class ServingLoop:
     def poll(self) -> None:
         """One event-loop tick: fire the batcher's deadline fuse, dispatch
         what it flushed, deliver any plans that finished."""
-        self._dispatch(self.batcher.poll())
+        now = self._clock()
+        self._dispatch(self.batcher.poll(now=now), now)
         self._reap()
         self._update_gauges()
 
     def drain(self) -> None:
         """End of stream / shutdown: force-flush the batcher and realize
         every in-flight plan; afterwards every issued future is done."""
-        self._dispatch(self.batcher.flush())
+        now = self._clock()
+        self._dispatch(self.batcher.flush(now=now), now)
         while self._inflight:
             self._realize(self._inflight[0])
         self._update_gauges()
 
     # -- internals ----------------------------------------------------------
 
-    def _dispatch(self, plans) -> None:
+    def _dispatch(self, plans, t_cut: float) -> None:
+        """Dispatch ``plans``, cut by the batcher at ``t_cut``."""
         for plan in plans:
+            ending = self._cut(plan, t_cut) if self._stamps else ()
             while len(self._inflight) >= self.max_inflight:
                 # backpressure: the oldest plan's completion is the brake
                 self._realize(self._inflight[0])
+            if ending:
+                t_dispatch = self._clock()
+                for st in ending:
+                    st.t_dispatch = t_dispatch
             handle = self.engine.run_plan(plan, sync=False)
             self._inflight.append((self._next_seq, handle, plan))
             self._next_seq += 1
             self.metrics.incr("loop_plans")
             # sampled at its high-water mark, before any reap can lower it
             self.metrics.gauge("inflight_plans", len(self._inflight))
+
+    def _cut(self, plan, t_cut: float) -> list[_Stamps]:
+        """Stamp the traced requests whose last events ``plan`` takes."""
+        ending = []
+        for rid, start, stop in plan.requests:
+            st = self._stamps.get(rid)
+            if st is not None:
+                st.uncut -= stop - start
+                if st.uncut == 0:
+                    st.t_cut = t_cut
+                    ending.append(st)
+        return ending
+
+    def _record_stages(self, fut: RequestFuture) -> None:
+        """A traced request turned done: its stages, unless it was shed."""
+        st = self._stamps.pop(fut.rid, None)
+        if st is None or fut.shed:
+            return
+        t_done = self._clock()
+        self.metrics.interval("loop.queued", st.t_cut - st.t_submit)
+        self.metrics.interval("loop.blocked", st.t_dispatch - st.t_cut)
+        self.metrics.interval("loop.inflight", t_done - st.t_dispatch)
 
     def _reap(self) -> None:
         """Deliver every in-flight plan that is already realized-ready —
@@ -228,6 +287,8 @@ class ServingLoop:
                 self.metrics.incr("loop_completed")
                 # the caller holds the future; the loop can forget it
                 del self._futures[rid]
+                if self._stamps:
+                    self._record_stages(fut)
 
     def _update_gauges(self) -> None:
         self.metrics.gauge("queue_depth", self.batcher.pending_events)

@@ -1,6 +1,6 @@
 """Rolling serving metrics: p50/p99 batch latency + sustained KGPS.
 
-A copy of ``repro.serving.metrics`` (pure numpy): the port imports
+A copy of ``repro.serving.metrics``, plus spans: the port imports
 nothing of the JAX package.
 
 One accounting surface shared by the engine, the trigger CLI and
@@ -31,15 +31,30 @@ numbers the same way:
   the serve thread records batches — ``Counter.__iadd__`` is a
   read-modify-write, and a lost ``shadow_disagreements`` increment is a
   lost corruption signal.
+* SPANS time the serving path's stages while a ``torch.profiler``
+  records, and only then (:meth:`ServingMetrics.span`,
+  :meth:`ServingMetrics.interval`): each is a ``record_function`` range
+  on the profiler's clock and a counter pair ``<name>.ns`` /
+  ``<name>.n`` (total nanoseconds, count), so the counters of a window
+  hold the profiled part of it and nothing else.  With no profiler
+  recording a span is one check of the profiler's state.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
+import time
 
 import numpy as np
+import torch
+
+#: True while a torch profiler records (the autograd profiler's state).
+tracing = torch._C._autograd._profiler_enabled
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def percentile(xs, q: float) -> float:
@@ -64,7 +79,7 @@ class BatchRecord:
 class ServingMetrics:
     """Rolling window of per-batch records with percentile / KGPS views."""
 
-    def __init__(self, window: int = 4096):
+    def __init__(self, window: int = 4096, *, clock_ns=time.perf_counter_ns):
         self._records: collections.deque[BatchRecord] = collections.deque(
             maxlen=window)
         self._wall_s = 0.0       # accumulated post-warmup stream wall time
@@ -73,6 +88,7 @@ class ServingMetrics:
         self._gauges: dict[str, float] = {}
         self._gauge_peaks: dict[str, float] = {}
         self._lock = threading.Lock()
+        self._clock_ns = clock_ns        # times spans (nanoseconds)
 
     def record_batch(self, latency_s: float, events: int, bucket: int) -> None:
         self._records.append(BatchRecord(latency_s, events, bucket))
@@ -87,6 +103,26 @@ class ServingMetrics:
 
     def counter(self, name: str) -> int:
         return self._counters[name]
+
+    def span(self, name: str):
+        """A context that times its body as the span ``name`` while a
+        profiler records: a ``record_function(name)`` range, and its
+        duration on ``clock_ns`` added to the counters ``<name>.ns`` and
+        ``<name>.n``.  Otherwise a shared no-op context."""
+        if not tracing():
+            return _NO_SPAN
+        return _Span(self, name)
+
+    def interval(self, name: str, seconds: float) -> None:
+        """Record a stage timed between two calls as one ``name`` span
+        (the counters only), while a profiler records."""
+        if tracing():
+            self._add_span(name, int(round(seconds * 1e9)))
+
+    def _add_span(self, name: str, ns: int) -> None:
+        with self._lock:
+            self._counters[name + ".ns"] += ns
+            self._counters[name + ".n"] += 1
 
     @property
     def counters(self) -> dict:
@@ -146,9 +182,28 @@ class ServingMetrics:
             "p50_us": p50_us,
             "p99_us": p99_us,
             "per_event_p50_us": p50_us / mean_events if evs else float("nan"),
-            "per_event_p99_us": p99_us / mean_events if evs else float("nan"),
             "kgps": kgps(self._wall_events, self._wall_s),
             "buckets": sorted({r.bucket for r in self._records}),
             "counters": self.counters,
             "gauges": self.gauges,
         }
+
+
+class _Span:
+    __slots__ = ("_metrics", "_name", "_range", "_t0")
+
+    def __init__(self, metrics: ServingMetrics, name: str):
+        self._metrics = metrics
+        self._name = name
+
+    def __enter__(self):
+        self._range = torch.autograd.profiler.record_function(self._name)
+        self._range.__enter__()
+        self._t0 = self._metrics._clock_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = self._metrics._clock_ns() - self._t0
+        self._range.__exit__(*exc)
+        self._metrics._add_span(self._name, ns)
+        return False
