@@ -19,15 +19,18 @@ Port of ``repro.serving.core``.  :class:`ExecutionCore` owns, for any
 
 Where the reference leaned on JAX's runtime, the port uses CUDA's own:
 host batches go to the card from a pinned host tensor with a
-``non_blocking`` copy on a side stream (the double buffer of
-:func:`serve_stream`); a dispatched result carries a ``torch.cuda.Event``
-recorded after its work, so readiness is ``Event.query()`` and waiting
-is ``Event.synchronize()`` (:class:`DeviceResult`).  No CUDA graph and
-no ``torch.compile`` yet: a bucket's callable launches eagerly.
+``non_blocking`` copy (from :meth:`ExecutionCore.infer`'s
+:class:`StagingRing` of reused slots, or on a side stream from the
+double buffer of :func:`serve_stream`); a dispatched result carries a
+``torch.cuda.Event`` recorded after its work, so readiness is
+``Event.query()`` and waiting is ``Event.synchronize()``
+(:class:`DeviceResult`).  No CUDA graph and no ``torch.compile`` yet: a
+bucket's callable launches eagerly.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 
@@ -40,6 +43,14 @@ from repro_torch.serving.metrics import ServingMetrics, kgps
 
 # In-flight dispatch depth for chunked infer().
 MAX_INFLIGHT_CHUNKS = 4
+
+# Most staging slots a StagingRing keeps for one bucket shape.
+MAX_STAGING_SLOTS = 2 * MAX_INFLIGHT_CHUNKS
+
+#: The counters StagingRing.fill bumps, one per chunk staged on CUDA: no
+#: fault, so checks for a quiet engine leave them out.
+STAGING_COUNTERS = ("core.stage_reused", "core.stage_grown",
+                    "core.stage_waited")
 
 # Retained merged busy-window intervals for overlap-safe KGPS accounting.
 _MAX_WALL_WINDOWS = 64
@@ -147,6 +158,90 @@ class _DoubleBuffer:
         return dev
 
 
+class _Slot:
+    """One pinned host buffer of a bucket's shape; rows ``[rows, bucket)``
+    are zero, and ``event`` completes when its last copy to the card has."""
+
+    __slots__ = ("key", "tensor", "array", "rows", "event")
+
+    def __init__(self, key, tensor: torch.Tensor, event):
+        self.key = key
+        self.tensor = tensor
+        self.array = tensor.numpy()
+        self.rows = 0
+        self.event = event
+
+
+class StagingRing:
+    """Reused host slots that chunks are staged in for their copy to the card.
+
+    A slot has a bucket's full shape and the chunk's trailing shape and
+    dtype, and is allocated once, zeroed (pinned unless ``pin`` is
+    False).  :meth:`fill` copies a chunk's rows into a free slot in one
+    copy and zeroes only the pad rows that still hold an earlier
+    chunk's, so that the slot equals ``Workload.pad(chunk, bucket)``;
+    :meth:`release` hands it back once its copy to the card is enqueued,
+    recording the slot's event (from ``new_event``) on that copy's
+    stream.  A slot is free only when its event has completed: the oldest
+    slot is reused if free; else the ring grows, up to ``limit`` slots a
+    shape; past that :meth:`fill` waits on the oldest slot's event.  Each
+    fill counts ``core.stage_reused``, ``core.stage_grown`` or
+    ``core.stage_waited`` through the ``count`` it is given.  Thread-safe:
+    a slot being filled is out of the ring until it is released, so two
+    threads never share one.
+    """
+
+    def __init__(self, *, limit: int = MAX_STAGING_SLOTS, pin: bool = True,
+                 new_event=torch.cuda.Event):
+        self._limit = limit
+        self._pin = pin
+        self._new_event = new_event
+        self._lock = threading.Lock()
+        self._ring: dict[tuple, collections.deque] = {}  # oldest first
+        self._size: collections.Counter = collections.Counter()
+
+    def _take(self, key, count) -> _Slot | None:
+        """The slot to fill for ``key`` (None: grow the ring), counted."""
+        with self._lock:
+            ring = self._ring.setdefault(key, collections.deque())
+            if ring and ring[0].event.query():
+                how, slot = "reused", ring.popleft()
+            elif self._size[key] < self._limit or not ring:
+                how, slot = "grown", None
+                self._size[key] += 1
+            else:
+                how, slot = "waited", ring.popleft()
+        count("core.stage_" + how)
+        if how == "waited":
+            slot.event.synchronize()
+        return slot
+
+    def fill(self, chunk: np.ndarray, bucket: int, count) -> _Slot:
+        """A slot holding ``chunk``'s rows, its other rows zero; ``count``
+        (e.g. ``ServingMetrics.incr``) takes the name of how it was got."""
+        key = (bucket, chunk.shape[1:], chunk.dtype)
+        slot = self._take(key, count)
+        if slot is None:
+            dtype = torch.from_numpy(np.empty(0, chunk.dtype)).dtype
+            slot = _Slot(key, torch.empty((key[0], *key[1]), dtype=dtype,
+                                          pin_memory=self._pin).zero_(),
+                         self._new_event())
+        n = chunk.shape[0]
+        np.copyto(slot.array[:n], chunk)
+        if slot.rows > n:
+            slot.array[n:slot.rows] = 0
+        slot.rows = n
+        return slot
+
+    def release(self, slot: _Slot, stream=None) -> None:
+        """Hand ``slot`` back after its copy to the card is enqueued on
+        ``stream``: its event, recorded there, guards its next fill.  A
+        slot never released (its copy failed) is never reused."""
+        slot.event.record(stream)
+        with self._lock:
+            self._ring[slot.key].append(slot)
+
+
 class Workload:
     """What a workload declares for :class:`ExecutionCore` to serve it:
     its bound callable per bucket, its input shape discipline and its
@@ -175,7 +270,9 @@ class Workload:
         raise NotImplementedError
 
     def pad(self, x: np.ndarray, bucket: int) -> np.ndarray:
-        """Pad a request's leading axis up to ``bucket`` rows."""
+        """Pad a request's leading axis up to ``bucket`` rows with zeros.
+        On CUDA, :meth:`ExecutionCore.infer` stages these same bytes into
+        a reused slot of its :class:`StagingRing` without calling this."""
         n = x.shape[0]
         if n == bucket:
             return x
@@ -342,6 +439,9 @@ class ExecutionCore:
         workload.validate_buckets(self.bucket_sizes)
         self._wall_windows: list[tuple[float, float]] = []
         self._cache: dict[tuple, object] = {}
+        # CUDA only: on the CPU, h2d hands the kernel the host tensor
+        # itself, which a reused slot would alias.
+        self._staging = StagingRing() if self.device.type == "cuda" else None
 
     @property
     def device(self) -> torch.device:
@@ -430,9 +530,13 @@ class ExecutionCore:
         arms the realization watchdog (sync path).  ``bucket`` pins the
         bucket instead of resolving it from the row count: the sentinel's
         canaries ride one bucket's cached callable with a small batch.
-        Each chunk's host batch (pad and staging copy), its copy to the
-        device and its launch are the spans ``core.stage``, ``core.h2d``
-        and ``core.launch``.
+        On CUDA a chunk is staged by one copy into a reused pinned slot of
+        the core's :class:`StagingRing`, whose event, recorded right after
+        the slot's ``non_blocking`` copy to the card, keeps it from being
+        refilled early; on the CPU it is padded (:meth:`Workload.pad`).
+        Each chunk's host batch (the copy into its slot, or the pad), its
+        copy to the device and its launch are the spans ``core.stage``,
+        ``core.h2d`` and ``core.launch``.
         """
         x = np.asarray(x)
         pin = bucket
@@ -461,10 +565,18 @@ class ExecutionCore:
                     chunk, path=self.workload.name, bucket=bucket)
             fn = self.compiled_for(bucket)
             t0 = time.perf_counter()
-            with span("core.stage"):
-                xh = stage(self._pad(chunk, bucket), self.device)
-            with span("core.h2d"):
-                xd = h2d(xh, self.device)
+            ring = self._staging
+            if ring is None:
+                with span("core.stage"):
+                    xh = stage(self._pad(chunk, bucket), self.device)
+                with span("core.h2d"):
+                    xd = h2d(xh, self.device)
+            else:
+                with span("core.stage"):
+                    slot = ring.fill(chunk, bucket, self.metrics.incr)
+                with span("core.h2d"):
+                    xd = h2d(slot.tensor, self.device)
+                ring.release(slot, torch.cuda.current_stream(self.device))
             with span("core.launch"):
                 out = DeviceResult(fn(xd))               # async dispatch
             if self.injector is not None:

@@ -29,6 +29,7 @@ from repro_torch.kernels.fm_interaction import ops as fm_ops
 from repro_torch.kernels.flash_decode import kernel as FDK
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.jedi_linear import ops as jl_ops
+from repro_torch.serving.core import STAGING_COUNTERS
 
 
 @pytest.fixture
@@ -424,7 +425,9 @@ def test_trained_weights_serve_through_b1(cuda):
     before = FK.fused_forward_full_kernel_call.launches
     served = [eng.infer(x) for x in xs]
     assert FK.fused_forward_full_kernel_call.launches - before == len(xs)
-    assert not eng.health()["counters"]
+    counters = eng.health()["counters"]
+    assert sum(counters.pop(k, 0) for k in STAGING_COUNTERS) == len(xs)
+    assert not counters
     for x, got in zip(xs, served):
         with torch.no_grad():
             ref = inet.forward_sr(state["params"], cfg,
