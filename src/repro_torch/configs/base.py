@@ -5,6 +5,13 @@ The port carries the pieces its slices use: :class:`MoEConfig`,
 :class:`ShapeSpec`, :class:`ArchSpec`, :data:`LM_SHAPES`,
 :data:`GNN_SHAPES`, :data:`RECSYS_SHAPES` and :data:`JEDI_SHAPES`, field
 for field as the reference declares them.
+
+Two port-only subclasses carry DeepSeek-V3's architecture, which the
+reference has no counterpart of: :class:`MLAConfig` (multi-head latent
+attention and leading dense layers) and :class:`RoutedMoEConfig` (shared
+experts, sigmoid scoring with a correction bias, dropless routing).  They
+are subclasses so that the mirrored classes keep the reference's fields
+exactly.
 """
 
 from __future__ import annotations
@@ -22,6 +29,21 @@ class MoEConfig:
     dense_residual: bool = False
     router_noise: float = 0.0
     aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedMoEConfig(MoEConfig):
+    """DeepSeek-V3's MoE (``modeling_deepseek.py``'s ``MoEGate`` with
+    ``topk_method="noaux_tc"``, one group): sigmoid scores in fp32, the top
+    ``top_k`` chosen by score + a per-expert correction bias, the chosen
+    scores (without the bias) normalised when ``norm_topk_prob`` and
+    scaled by ``routed_scaling_factor``; ``n_shared_experts`` SwiGLU
+    experts of the routed width run on every token as one of
+    ``n_shared_experts`` times that width.  Dropless: every assignment is
+    computed (``capacity_factor`` is unused)."""
+    n_shared_experts: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +78,31 @@ class TransformerConfig:
     @property
     def is_full_attention(self) -> bool:
         return self.sliding_window is None
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(TransformerConfig):
+    """DeepSeek-V3's decoder: multi-head latent attention without q-LoRA
+    (q from one product; k and v from a ``kv_lora_rank`` latent that is
+    RMS-normed, plus one ``qk_rope_head_dim`` rope key shared by the heads)
+    and ``first_k_dense`` leading dense layers of width ``dense_d_ff``
+    before the MoE layers (whose expert width is ``d_ff``).  The decode
+    cache holds the latent and the rope key, not k and v."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    norm_eps: float = 1e-6
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,10 @@
-"""moonshot-v1-16b-a3b [moe] — Moonlight-16B-A3B (kimi).
+"""moonshot-v1-16b-a3b [moe] — the JAX reference's simplification of
+Moonlight-16B-A3B (kimi), not the published model.
+
+The published architecture (multi-head latent attention, one leading
+dense layer, sigmoid-routed dropless experts with 2 shared) is the
+port-only ``moonlight_16b_a3b.py`` (registry id ``moonlight-16b-a3b``);
+this config mirrors the reference's registry entry and keeps its numbers.
 
 48L d_model=2048 16H (GQA kv=16) d_ff=1408 vocab=163840, MoE 64e top-6.
 [hf:moonshotai/Moonlight-16B-A3B; hf]

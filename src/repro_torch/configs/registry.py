@@ -3,6 +3,9 @@
 Counterpart of ``repro.configs.registry``: every arch of the reference
 has a port config (each module exports an ``ARCH``); the dry run
 (``launch/dryrun.py``) walks its cells with :func:`iter_cells`.
+:data:`ARCH_MODULES` mirrors the reference's table; archs the reference
+lacks are in :data:`PORT_ONLY_MODULES`, which :func:`get_arch` also reads
+and the dry run does not walk.
 """
 
 from __future__ import annotations
@@ -32,14 +35,20 @@ ARCH_MODULES = {
     "jedinet-tracks-128": "repro_torch.configs.jedi_tracks_128",
 }
 
+#: Archs of the port alone (no JAX counterpart).
+PORT_ONLY_MODULES = {
+    "moonlight-16b-a3b": "repro_torch.configs.moonlight_16b_a3b",
+}
+
 ASSIGNED_ARCHS = [a for a in ARCH_MODULES if not a.startswith("jedinet")]
 ALL_ARCHS = list(ARCH_MODULES)
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_MODULES)}")
-    mod = importlib.import_module(ARCH_MODULES[arch_id])
+    modules = {**ARCH_MODULES, **PORT_ONLY_MODULES}
+    if arch_id not in modules:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(modules)}")
+    mod = importlib.import_module(modules[arch_id])
     return mod.ARCH
 
 

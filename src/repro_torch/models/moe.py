@@ -32,6 +32,14 @@ reference's six sharding constraints are in place
 (:func:`repro_torch.parallel.sharding.constrain`): no-ops outside an
 ``axis_rules`` context.  The all-to-all dispatch across ranks is
 ``parallel/moe_dispatch.py``.
+
+DeepSeek-V3's MoE (:class:`~repro_torch.configs.base.RoutedMoEConfig`,
+port only) is :func:`routed_moe_apply`: sigmoid scores, a bias-corrected
+choice, shared experts and a DROPLESS grouped product: the assignments
+are sorted by expert and each expert's contiguous rows go through
+``torch._grouped_mm`` with device offsets, so every assignment is
+computed, whatever the routing, and nothing is read back to the host.
+A :class:`RouteRecord` can keep the expert ids it chose, on the device.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common import prng
-from repro_torch.configs.base import MoEConfig
+from repro_torch.configs.base import MoEConfig, RoutedMoEConfig
 from repro_torch.nn import core as nn
 from repro_torch.parallel.sharding import constrain, on_whole, \
     split_reshape
@@ -60,6 +68,34 @@ def moe_shapes(moe: MoEConfig, d_model: int, d_ff: int) -> dict:
         ("experts", "w_in"): (2, (e, d_model, d_ff), std_in),
         ("experts", "w_out"): (3, (e, d_ff, d_model), std_out),
     }
+
+
+def routed_moe_shapes(moe: RoutedMoEConfig, d_model: int, d_ff: int) -> dict:
+    """``(group, name) -> shape`` of one layer of :func:`routed_moe_apply`'s
+    weights: the router (its weight, and the correction bias, kept in
+    fp32), the routed experts and the shared experts as one SwiGLU of
+    ``n_shared_experts * d_ff``."""
+    e, f_sh = moe.n_experts, moe.n_shared_experts * d_ff
+    shapes = {
+        ("router", "w"): (d_model, e),
+        ("router", "bias"): (e,),
+        ("experts", "w_gate"): (e, d_model, d_ff),
+        ("experts", "w_in"): (e, d_model, d_ff),
+        ("experts", "w_out"): (e, d_ff, d_model),
+    }
+    if f_sh:
+        shapes.update({
+            ("shared", "w_gate"): (d_model, f_sh),
+            ("shared", "w_in"): (d_model, f_sh),
+            ("shared", "w_out"): (f_sh, d_model),
+        })
+    return shapes
+
+
+#: Spread of the random correction bias: wide enough to move some
+#: choices away from the plain top-k of the scores (whose spread is ~0.2
+#: at DeepSeek-V3's init), so that a bias applied to the weights would show.
+ROUTER_BIAS_STD = 0.1
 
 
 def init_moe(key, moe: MoEConfig, d_model: int, d_ff: int, *,
@@ -159,3 +195,120 @@ def moe_apply(params, moe: MoEConfig, x, *, compute_dtype=torch.bfloat16,
     out = (per_assign * gates.to(y.dtype)[..., None]).float().sum(1)
     out = constrain(out, "tokens", None)
     return out.to(cdt), aux
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MoE: sigmoid router with a correction bias, shared experts,
+# dropless grouped products
+# ---------------------------------------------------------------------------
+
+def routed_choice(params, moe: RoutedMoEConfig, x):
+    """x: (T, d) -> (weights (T, k) fp32, expert ids (T, k) int64).
+
+    The router's product in fp32 (``x`` and its weight upcast), sigmoid
+    scores, the top k of score + correction bias by a stable descending
+    sort (ties to the lower expert index), and the chosen scores without
+    the bias, normalised (``+ 1e-20``, as ``modeling_deepseek.py``) when
+    ``norm_topk_prob``, times ``routed_scaling_factor``."""
+    r = params["router"]
+    scores = torch.sigmoid(x.float() @ r["w"].float())
+    choice = scores + r["bias"].float()
+    ids = torch.sort(choice, dim=-1, descending=True,
+                     stable=True).indices[:, :moe.top_k]
+    w = scores.gather(1, ids)
+    if moe.norm_topk_prob:
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    return w * moe.routed_scaling_factor, ids
+
+
+def grouped_mm(x, w, offs):
+    """Rows of ``x`` (N, K), sorted by group, times their group's ``w``
+    (G, K, M): group g owns rows ``offs[g-1]:offs[g]`` (``offs`` int32
+    end offsets on the device; empty groups allowed)."""
+    return torch._grouped_mm(x, w, offs=offs)
+
+
+def _swiglu(x, w_gate, w_in, w_out, act):
+    return nn.dot(act(nn.dot(x, w_gate)) * nn.dot(x, w_in), w_out)
+
+
+def routed_moe_apply(params, moe: RoutedMoEConfig, x, *,
+                     compute_dtype=torch.bfloat16, activation: str = "silu",
+                     route=None):
+    """x: (T, d) -> (T, d) in the compute dtype: y = sum_i w_i E_i(x) +
+    S(x), no token dropped.
+
+    Dropless dispatch on the device: the T * k assignments are
+    stable-sorted by expert, each expert's end offset found by
+    ``searchsorted`` (no ``bincount``, which reads the largest id back),
+    the token rows gathered in that order and put through the three
+    grouped products, then scattered back to (token, k) order and summed
+    with their weights in fp32.  The shared experts' SwiGLU is added in
+    fp32 too, and the sum rounded once to the compute dtype.  ``route``,
+    a (T, k) integer view of a :class:`RouteRecord`, receives the chosen
+    ids (a device copy)."""
+    t, d = x.shape
+    e, k = moe.n_experts, moe.top_k
+    cdt = nn.as_dtype(compute_dtype)
+    act = nn.ACTIVATIONS[activation]
+    xc = x.to(cdt)
+    weights, ids = routed_choice(params, moe, xc)
+    if route is not None:
+        route.copy_(ids)
+    flat = ids.reshape(-1)
+    sorted_e, order = torch.sort(flat, stable=True)
+    offs = torch.searchsorted(
+        sorted_e, torch.arange(e, device=x.device), right=True
+    ).to(torch.int32)
+    xs = xc.index_select(0, order // k)
+    w = params["experts"]
+    mid = act(grouped_mm(xs, w["w_gate"].to(cdt), offs)) \
+        * grouped_mm(xs, w["w_in"].to(cdt), offs)
+    ys = grouped_mm(mid, w["w_out"].to(cdt), offs)
+    y = torch.empty_like(ys).index_copy_(0, order, ys).view(t, k, d)
+    out = (y.float() * weights[..., None]).sum(1)
+    if moe.n_shared_experts:
+        sh = params["shared"]
+        out = out + _swiglu(xc, sh["w_gate"]["w"].to(cdt),
+                            sh["w_in"]["w"].to(cdt),
+                            sh["w_out"]["w"].to(cdt), act).float()
+    return out.to(cdt)
+
+
+class RouteRecord:
+    """The expert ids an MoE stack chose for every token it was given
+    while recording, kept on the device.
+
+    :meth:`take` reserves ``n`` rows of ``(n_layers, top_k)`` uint8 ids
+    under a tag, in preallocated chunks of ``chunk_rows`` rows (a new chunk
+    when one is full); the model writes each MoE layer's ids into its
+    column with a device copy.  Nothing is read back to the host until a
+    caller reads :meth:`rows`.  Off unless a caller passes its views:
+    :class:`repro_torch.serving.lm.LMEngine` does with ``route_record=``.
+    """
+
+    def __init__(self, n_layers: int, top_k: int, *, device,
+                 chunk_rows: int = 1 << 18):
+        self.n_layers, self.top_k = int(n_layers), int(top_k)
+        self.device = resolve_device(device)
+        self.chunk_rows = int(chunk_rows)
+        self.nbytes = 0
+        self._chunk = None
+        self._used = 0
+        self._views: dict = {}
+
+    def take(self, n: int, tag) -> torch.Tensor:
+        """A (n, n_layers, top_k) view for ``tag``'s ``n`` tokens."""
+        if self._chunk is None or self._used + n > self._chunk.shape[0]:
+            rows = max(n, self.chunk_rows)
+            self._chunk = torch.zeros((rows, self.n_layers, self.top_k),
+                                      dtype=torch.uint8, device=self.device)
+            self.nbytes += self._chunk.numel()
+            self._used = 0
+        view = self._chunk[self._used:self._used + n]
+        self._used += n
+        self._views[tag] = view
+        return view
+
+    def rows(self, tag) -> torch.Tensor:
+        return self._views[tag]

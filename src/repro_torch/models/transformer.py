@@ -28,6 +28,17 @@ On the card the decode step's attention is one launch of kernel B5
 the plain :func:`repro_torch.nn.attention.attention`.  The dense products
 and the MoE's router and expert products stay ``torch.matmul``
 (:func:`repro_torch.nn.core.dot`), as the reference leaves them to XLA.
+
+DeepSeek-V3's decoder (an :class:`~repro_torch.configs.base.MLAConfig`,
+port only: moonlight-16b-a3b) takes its own branch of ``init``,
+``forward``, ``init_cache`` and ``decode_step``: multi-head latent
+attention (naive in prefill; in decode the absorbed form over a cache of
+the normed latent ``ckv`` and the roped key ``kpe``, as batched bf16
+products with fp32 scores and softmax, masked by ``slot_pos``), one or
+more leading dense layers, then the routed MoE
+(:func:`repro_torch.models.moe.routed_moe_apply`).  While a profiler
+records, its decode step marks each layer's latent attention and experts
+with the ranges ``lm.mla`` and ``lm.moe``.
 """
 
 from __future__ import annotations
@@ -44,11 +55,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.common import prng
 from repro_torch.common.tree import path_map, tree_leaves, tree_map
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import MLAConfig, TransformerConfig
 from repro_torch.kernels.flash_decode import kernel as FDK
 from repro_torch.models import moe as moe_lib
 from repro_torch.nn import core as nn
-from repro_torch.nn.attention import attention, scale_q
+from repro_torch.nn.attention import NEG_INF, attention, scale_q
 from repro_torch.nn.rope import apply_rope, rope_cos_sin
 from repro_torch.parallel.sharding import constrain, flatten_ready, \
     replicated, shard_block, split_reshape
@@ -131,6 +142,8 @@ def init(key_or_seed, cfg: TransformerConfig, *, device="cuda"):
     ``param_dtype`` tensor: moonshot's whole (48, 64, 2048, 1408) leaf in
     fp32 would be a 35 GB temporary.
     """
+    if isinstance(cfg, MLAConfig):
+        return _mla_init(key_or_seed, cfg, device=device)
     dev = resolve_device(device)
     pd = nn.as_dtype(cfg.param_dtype)
     v, d, n = padded_vocab(cfg), cfg.d_model, cfg.n_layers
@@ -417,26 +430,38 @@ def _head_weight(params, cfg: TransformerConfig, cdt):
 
 
 def forward(params, cfg: TransformerConfig, tokens, *, return_cache=False,
-            kv_chunk=2048, q_chunk=None):
+            kv_chunk=2048, q_chunk=None, route=None):
     """tokens: (B, S) int -> (logits (B, S, vocab_padded), aux[, cache]),
-    logits in the compute dtype."""
+    logits in the compute dtype.  ``route`` (MLA configs only): a
+    (B * S, n_moe_layers, top_k) view of a :class:`moe_lib.RouteRecord`
+    that receives the experts each token chose."""
     cdt = nn.as_dtype(cfg.compute_dtype)
     out = forward_hidden(params, cfg, tokens, return_cache=return_cache,
-                         kv_chunk=kv_chunk, q_chunk=q_chunk)
+                         kv_chunk=kv_chunk, q_chunk=q_chunk, route=route)
     logits = nn.dot(out[0], _head_weight(params, cfg, cdt))
     logits = constrain(logits, "tokens", None, None)
     return (logits, *out[1:])
 
 
 def forward_hidden(params, cfg: TransformerConfig, tokens, *,
-                   return_cache=False, kv_chunk=2048, q_chunk=None):
+                   return_cache=False, kv_chunk=2048, q_chunk=None,
+                   route=None):
     """tokens: (B, S) int -> (h (B, S, d), aux_loss [, cache]); aux_loss
     is the sum of the layers' MoE aux losses (0 for a dense LM), the
     cache holds k / v stacked as (n_layers, B, S, n_kv, hd) and ``pos`` =
     S.  With ``remat="layer"``, grad mode on and a param that requires
     grad, each layer runs under ``torch.utils.checkpoint``
     (non-reentrant): its activations are recomputed in the backward
-    instead of kept.  Serving never asks for grads, so it runs no remat."""
+    instead of kept.  Serving never asks for grads, so it runs no remat.
+    An MLA config's cache holds ``ckv`` (n_layers, B, S, kv_lora_rank) and
+    ``kpe`` (n_layers, B, S, qk_rope_head_dim) in place of k / v."""
+    if isinstance(cfg, MLAConfig):
+        return _mla_forward_hidden(params, cfg, tokens,
+                                   return_cache=return_cache,
+                                   kv_chunk=kv_chunk, q_chunk=q_chunk,
+                                   route=route)
+    if route is not None:
+        raise ValueError("a route record needs an MLA config's routed MoE")
     cdt = nn.as_dtype(cfg.compute_dtype)
     b, s = tokens.shape
     h = constrain(_embed(params, tokens, cdt), "batch", "seq", None)
@@ -529,21 +554,31 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                dtype=None, *, device="cuda"):
     """k / v (n_layers, batch, T, n_kv, hd) zeros in ``dtype`` (the
     compute dtype by default), ``slot_pos`` (batch, T) = -1 (empty) and
-    ``pos`` (batch,) = 0, on ``device``."""
+    ``pos`` (batch,) = 0, on ``device``.  An MLA config's cache holds the
+    latent ``ckv`` (n_layers, batch, T, kv_lora_rank) and the rope key
+    ``kpe`` (n_layers, batch, T, qk_rope_head_dim) in place of k / v: 31,104
+    B a position at moonlight-16b-a3b in bf16."""
     dev = resolve_device(device)
     t = cache_len(cfg, max_seq)
     dt = nn.as_dtype(dtype or cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim_)
+    if isinstance(cfg, MLAConfig):
+        layers = {
+            "ckv": (cfg.n_layers, batch, t, cfg.kv_lora_rank),
+            "kpe": (cfg.n_layers, batch, t, cfg.qk_rope_head_dim)}
+    else:
+        shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim_)
+        layers = {"k": shape, "v": shape}
     return {
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
+        **{key: torch.zeros(shape, dtype=dt, device=dev)
+           for key, shape in layers.items()},
         # absolute position of each slot's entry; -1 = empty
         "slot_pos": torch.full((batch, t), -1, dtype=torch.int32, device=dev),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
 
 
-def decode_step(params, cfg: TransformerConfig, cache, tokens):
+def decode_step(params, cfg: TransformerConfig, cache, tokens, *,
+                route=None):
     """One greedy decode step. tokens: (B,) int -> (logits (B, V) fp32,
     cache).
 
@@ -552,8 +587,13 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
     the reference returns a new one.  Each layer's attention is one B5
     launch on the card over that layer's whole (B, T, Hkv, D) cache after
     this step's write, with q_pos = ``pos`` and kv_pos = the updated
-    ``slot_pos``.
+    ``slot_pos``.  An MLA config decodes over its latent cache
+    (:func:`_mla_decode_step`), ``route`` receiving its experts' ids.
     """
+    if isinstance(cfg, MLAConfig):
+        return _mla_decode_step(params, cfg, cache, tokens, route=route)
+    if route is not None:
+        raise ValueError("a route record needs an MLA config's routed MoE")
     cdt = nn.as_dtype(cfg.compute_dtype)
     b = tokens.shape[0]
     t = cache["k"].shape[2]
@@ -578,6 +618,259 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens):
                             rope, cache=(cache["k"][i], cache["v"][i],
                                          cache["slot_pos"], rows))
     h = nn.rmsnorm_apply(params["final_norm"], h)
+    logits = nn.dot(h, _head_weight(params, cfg, cdt))[:, 0, :]
+    cache["pos"] = cur + 1
+    return logits.float(), cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3: multi-head latent attention, leading dense layers, routed MoE
+# ---------------------------------------------------------------------------
+
+#: Query block of MLA's prefill attention: the (heads, q, kv block) fp32
+#: scores of an 8,192-token prompt stay at 134 MB a block.
+MLA_Q_CHUNK = 1024
+
+#: Std of the random init of every MLA-model matrix: the
+#: ``initializer_range`` of DeepSeek-V3's ``_init_weights`` (0.02).  He's
+#: sqrt(2 / fan_in) makes the random 27-layer stack chaotic enough that
+#: bf16 serving drifts ~7% of the largest logit from fp32 (PERF.md §6).
+MLA_INIT_STD = 0.02
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A ``record_function`` range while a profiler records, else a shared
+    no-op (one check of the profiler's state), as
+    ``serving.metrics.ServingMetrics.span``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_RANGE
+
+
+def mla_shapes(cfg: MLAConfig) -> dict:
+    """Path -> (shape, std, dtype) of every parameter of an MLA model
+    (``std`` None: a norm scale of ones; ``dtype`` None: ``param_dtype``).
+    Every matrix and the embedding draw from N(0, :data:`MLA_INIT_STD`),
+    DeepSeek-V3's own init; the router's correction bias (fp32) from
+    N(0, ``moe.ROUTER_BIAS_STD``).  Stacked leaves lead with their layer
+    axis: ``layers`` over all ``n_layers``, ``dense`` over the
+    ``first_k_dense`` leading layers, ``moe`` over the rest."""
+    d, h, nl = cfg.d_model, cfg.n_heads, cfg.n_layers
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    v, f, k = padded_vocab(cfg), cfg.dense_d_ff, cfg.first_k_dense
+    hq, hkv, ho = h * cfg.qk_head_dim, h * (cfg.qk_nope_head_dim
+                                            + cfg.v_head_dim), h * cfg.v_head_dim
+    std = MLA_INIT_STD
+    shapes = {
+        "embed/w": ((v, d), std, None),
+        "lm_head/w": ((d, v), std, None),
+        "final_norm/scale": ((d,), None, None),
+        "layers/attn_norm/scale": ((nl, d), None, None),
+        "layers/ffn_norm/scale": ((nl, d), None, None),
+        "layers/attn/wq/w": ((nl, d, hq), std, None),
+        "layers/attn/wkv_a/w": ((nl, d, r + dr), std, None),
+        "layers/attn/kv_norm/scale": ((nl, r), None, None),
+        "layers/attn/wkv_b/w": ((nl, r, hkv), std, None),
+        "layers/attn/wo/w": ((nl, ho, d), std, None),
+    }
+    if k:
+        shapes.update({
+            "dense/w_gate/w": ((k, d, f), std, None),
+            "dense/w_in/w": ((k, d, f), std, None),
+            "dense/w_out/w": ((k, f, d), std, None),
+        })
+    for (group, name), shape in moe_lib.routed_moe_shapes(
+            cfg.moe, d, cfg.d_ff).items():
+        path = f"moe/{group}/{name}" + ("/w" if group == "shared" else "")
+        if name == "bias":
+            shapes[path] = ((cfg.n_moe_layers, *shape),
+                            moe_lib.ROUTER_BIAS_STD, torch.float32)
+        else:
+            shapes[path] = ((cfg.n_moe_layers, *shape), std, None)
+    return shapes
+
+
+def _mla_init(seed, cfg: MLAConfig, *, device="cuda"):
+    """Random params of an MLA model from an int seed, drawn by torch on
+    ``device`` one layer at a time (no fp32 copy of a stacked leaf)."""
+    if isinstance(seed, np.ndarray):
+        raise ValueError("an MLA config has no reference init to replay: "
+                         "draw it from an int seed")
+    dev = resolve_device(device)
+    pd = nn.as_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    params: dict = {}
+    for path, (shape, std, dtype) in mla_shapes(cfg).items():
+        t = torch.empty(shape, dtype=dtype or pd, device=dev)
+        if std is None:
+            t.fill_(1.0)
+        elif path.split("/")[0] in ("layers", "dense", "moe"):
+            for i in range(shape[0]):
+                t[i] = torch.randn(shape[1:], generator=gen, device=dev) * std
+        else:
+            t.copy_(torch.randn(shape, generator=gen, device=dev) * std)
+        node = params
+        *groups, leaf = path.split("/")
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = t
+    return params
+
+
+def _deinterleave(x):
+    """DeepSeek-V3's rope layout: the even lanes, then the odd lanes, so
+    that the rotate-half rotation pairs lanes (2i, 2i + 1)."""
+    return torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` (batched) with an fp32 result: exact products of the
+    operands summed in fp32, without the bf16 rounding of the output."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _write_rows(cache, rows, x) -> None:
+    """This step's rows into one layer's cache, in the cache's dtype (a
+    1-byte cache such as fp8 through its bytes: ``index_put`` has no
+    float8 kernel)."""
+    if cache.element_size() == 1 and cache.dtype != x.dtype:
+        cache.view(torch.uint8)[rows] = x.to(cache.dtype).view(torch.uint8)
+    else:
+        cache[rows] = x.to(cache.dtype)
+
+
+def latent_attention(q_lat, q_pe, ckv, kpe, valid, scale: float):
+    """One token's absorbed MLA attention over one layer's latent cache.
+
+    q_lat (B, H, r) and q_pe (B, H, dr) in the compute dtype; ckv (B, T, r),
+    kpe (B, T, dr); valid (B, T) bool.  Scores q_lat . ckv + q_pe . kpe in
+    fp32, scaled, masked, an fp32 softmax, then p (cast to the compute
+    dtype) times ckv: (B, H, r) in the compute dtype."""
+    cdt = q_lat.dtype
+    ckv, kpe = ckv.to(cdt), kpe.to(cdt)
+    s = _bmm_f32(q_lat, ckv.transpose(1, 2)) \
+        + _bmm_f32(q_pe, kpe.transpose(1, 2))
+    s = (s * scale).masked_fill(~valid[:, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.bmm(p.to(cdt), ckv)
+
+
+def _mla_attn(lp, cfg: MLAConfig, h, q_pos, rope, *, cache=None,
+              kv_chunk=None, q_chunk=None):
+    """h: (B, S, d) -> (attn_out, (ckv, kpe)).  Without a cache: the naive
+    form (k_nope and v up-projected from the latent for every position,
+    ``attention`` over q = [q_nope, q_pe] and k = [k_nope, kpe]); the
+    returned ``ckv`` / ``kpe`` are this sequence's, for the prefill cache.
+    With ``cache = (ckv_cache, kpe_cache, slot_pos, rows)`` (S = 1): this
+    step's rows are written in place and the absorbed form attends over
+    the whole latent cache (:func:`latent_attention`)."""
+    cdt = nn.as_dtype(cfg.compute_dtype)
+    b, s, _ = h.shape
+    nh, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    a = lp["attn"]
+    x = nn.rmsnorm_apply(lp["attn_norm"], h, eps=cfg.norm_eps)
+    q_nope, q_pe = _dense(a["wq"], x, cdt).view(b, s, nh, dn + dr).split(
+        [dn, dr], dim=-1)
+    c_kv, k_pe = _dense(a["wkv_a"], x, cdt).split([r, dr], dim=-1)
+    c_kv = nn.rmsnorm_apply(a["kv_norm"], c_kv, eps=cfg.norm_eps)
+    cos, sin = rope
+    q_pe = apply_rope(_deinterleave(q_pe), cos, sin)
+    k_pe = apply_rope(_deinterleave(k_pe)[:, :, None], cos, sin)[:, :, 0]
+    w_kvb = a["wkv_b"]["w"].to(cdt)
+    if cache is None:
+        k_nope, v = nn.dot(c_kv, w_kvb).view(b, s, nh, dn + dv).split(
+            [dn, dv], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe[:, :, None].expand(b, s, nh, dr)], dim=-1)
+        o = attention(q, k, v, q_pos=q_pos, kv_pos=q_pos, causal=True,
+                      kv_chunk=kv_chunk, q_chunk=q_chunk)
+        kv_out = (c_kv, k_pe)
+    else:
+        ckv_cache, kpe_cache, slot_pos, rows = cache
+        w = w_kvb.view(r, nh, dn + dv)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w[..., :dn])
+        with _range("lm.mla"):
+            _write_rows(ckv_cache, rows, c_kv[:, 0])
+            _write_rows(kpe_cache, rows, k_pe[:, 0])
+            o_lat = latent_attention(q_lat, q_pe[:, 0], ckv_cache, kpe_cache,
+                                     slot_pos >= 0, (dn + dr) ** -0.5)
+        o = torch.einsum("bhr,rhd->bhd", o_lat, w[..., dn:])[:, None]
+        kv_out = (ckv_cache, kpe_cache)
+    return _dense(a["wo"], o.reshape(b, s, nh * dv), cdt), kv_out
+
+
+def _mla_layer(params, cfg: MLAConfig, i: int, h, q_pos, rope, *,
+               cache=None, route=None, kv_chunk=None, q_chunk=None):
+    """Layer ``i``: MLA, then the dense SwiGLU (``i < first_k_dense``) or
+    the routed MoE over the block's B * S tokens.  Returns (h, kv)."""
+    cdt = nn.as_dtype(cfg.compute_dtype)
+    lp = _layer(params["layers"], i)
+    attn_out, kv = _mla_attn(lp, cfg, h, q_pos, rope, cache=cache,
+                             kv_chunk=kv_chunk, q_chunk=q_chunk)
+    h = h + attn_out
+    x = nn.rmsnorm_apply(lp["ffn_norm"], h, eps=cfg.norm_eps)
+    if i < cfg.first_k_dense:
+        y = _dense_ffn(_layer(params["dense"], i), cfg, x)
+    else:
+        j = i - cfg.first_k_dense
+        b, s, d = x.shape
+        with _range("lm.moe") if cache is not None else _NO_RANGE:
+            y = moe_lib.routed_moe_apply(
+                _layer(params["moe"], j), cfg.moe, x.reshape(b * s, d),
+                compute_dtype=cdt, activation=cfg.activation,
+                route=None if route is None else route[:, j]).view(b, s, d)
+    return h + y.to(h.dtype), kv
+
+
+def _mla_forward_hidden(params, cfg: MLAConfig, tokens, *, return_cache,
+                        kv_chunk, q_chunk, route):
+    cdt = nn.as_dtype(cfg.compute_dtype)
+    b, s = tokens.shape
+    h = _embed(params, tokens, cdt)
+    q_pos = torch.arange(s, dtype=torch.int32,
+                         device=tokens.device)[None].expand(b, s)
+    rope = rope_cos_sin(q_pos, cfg.qk_rope_head_dim, cfg.rope_theta)
+    ckvs, kpes = [], []
+    for i in range(cfg.n_layers):
+        h, (ckv, kpe) = _mla_layer(params, cfg, i, h, q_pos, rope,
+                                   route=route, kv_chunk=kv_chunk,
+                                   q_chunk=q_chunk or MLA_Q_CHUNK)
+        if return_cache:
+            ckvs.append(ckv)
+            kpes.append(kpe)
+    h = nn.rmsnorm_apply(params["final_norm"], h, eps=cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if return_cache:
+        cache = {"ckv": torch.stack(ckvs), "kpe": torch.stack(kpes),
+                 "pos": torch.full((b,), s, dtype=torch.int32,
+                                   device=tokens.device)}
+        return h, aux, cache
+    return h, aux
+
+
+def _mla_decode_step(params, cfg: MLAConfig, cache, tokens, *, route=None):
+    """:func:`decode_step` over an MLA config's latent cache: this step's
+    ``slot_pos`` written first, then every layer writes its (ckv, kpe)
+    row and attends over the whole cache in the absorbed form."""
+    cdt = nn.as_dtype(cfg.compute_dtype)
+    b = tokens.shape[0]
+    t = cache["ckv"].shape[2]
+    cur = cache["pos"]
+    rows = (torch.arange(b, device=tokens.device), (cur % t).long())
+    cache["slot_pos"][rows] = cur
+    h = _embed(params, tokens[:, None], cdt)
+    q_pos = cur[:, None]
+    rope = rope_cos_sin(q_pos, cfg.qk_rope_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        h, _ = _mla_layer(params, cfg, i, h, q_pos, rope, route=route,
+                          cache=(cache["ckv"][i], cache["kpe"][i],
+                                 cache["slot_pos"], rows))
+    h = nn.rmsnorm_apply(params["final_norm"], h, eps=cfg.norm_eps)
     logits = nn.dot(h, _head_weight(params, cfg, cdt))[:, 0, :]
     cache["pos"] = cur + 1
     return logits.float(), cache

@@ -87,7 +87,8 @@ def _attend_blockwise(q, k, v, bias, kv_chunk: int):
     dev = q.device
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, v.shape[-1]), dtype=torch.float32,
+                      device=dev)
     for c in range(0, n_chunks * kv_chunk, kv_chunk):
         kc, vc = k[:, c:c + kv_chunk], v[:, c:c + kv_chunk]
         s = _scores(q, kc) + bias[:, None, None, :, c:c + kv_chunk]
@@ -105,9 +106,10 @@ def attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
               window=None, kv_chunk=None, q_chunk=None):
     """Grouped-query attention.
 
-    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D); H % Hkv == 0.
+    q, k: (B, Sq | Skv, H | Hkv, D); v: (B, Skv, Hkv, Dv) (Dv = D but for
+    MLA's prefill); H % Hkv == 0.
     q_pos: (B, Sq) int; kv_pos: (B, Skv) int, -1 for invalid slots.
-    Returns (B, Sq, H, D) in v's dtype.
+    Returns (B, Sq, H, Dv) in v's dtype.
     """
     # the einsums flatten (batch, heads): sharded q / k / v keep only
     # their batch axis sharded (a redistribution seam, as in nn.core.dot)
@@ -131,4 +133,4 @@ def attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
                        for c in range(0, sq, q_chunk)], dim=1)
     else:
         o = run(qg, q_pos)
-    return o.reshape(b, sq, h, d)
+    return o.reshape(b, sq, h, v.shape[-1])

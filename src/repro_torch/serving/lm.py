@@ -33,6 +33,20 @@ padded rung's tokens, pad tokens included, which compete for expert
 slots after the real ones, as in the reference.  So for an MoE the
 spliced prefill is the padded one, not what an unpadded prefill would
 give; the port pads exactly as the reference does.
+
+An MLA LM (moonlight-16b-a3b, port only) serves through the same engine:
+its cache holds ``ckv`` / ``kpe`` in place of ``k`` / ``v`` (the engine
+splices and restores whatever per-layer keys the cache has), and its
+routed MoE is dropless, so its padded prefill gives each real token what
+the unpadded one would.  Its expert choices can be kept on the card by a
+:class:`~repro_torch.models.moe.RouteRecord` (``route_record=``).
+
+Spans (``ServingMetrics.span``, live only while a profiler records):
+``lm.admit`` (a request's prefill, splice and first token) and
+``lm.decode`` (a tick's decode step up to its tokens on the host).  The
+counter ``lm.kv_positions`` adds, for every decode step, the cache
+positions each active slot attends over (its length after this step's
+row, at most the cache's), from the host's own count.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import MLAConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.core import ExecutionCore, Workload, to_device
 from repro_torch.serving.engine import params_to
@@ -116,7 +131,8 @@ class LMWorkload(Workload):
     def build(self, bucket):
         """The bucket's callable, run inside :func:`tfm.xla_rounding`: the
         LM's owner sets the process-wide cuBLAS rounding flags around its
-        own calls and restores them after."""
+        own calls and restores them after.  Keyword arguments (an MLA
+        model's ``route=``) pass through to the model."""
         params = self.compute_params()
         if bucket == "decode":             # (cache, tokens) -> (logits, cache)
             fn = functools.partial(tfm.decode_step, params, self.cfg)
@@ -124,9 +140,9 @@ class LMWorkload(Workload):
             fn = functools.partial(tfm.forward, params, self.cfg,
                                    return_cache=True)
 
-        def run(*args):
+        def run(*args, **kw):
             with tfm.xla_rounding():
-                return fn(*args)
+                return fn(*args, **kw)
         return run
 
     def placeholder(self, bucket: int) -> np.ndarray:
@@ -141,11 +157,20 @@ class LMEngine(ExecutionCore):
     completion.  The decode cache is batched over ``slots`` concurrent
     requests on ``device`` (the card by default; raises without one); a
     finished request releases its slot to the next queued one mid-stream.
+
+    ``cache_dtype`` overrides the cache's dtype (the compute dtype by
+    default).  ``route_record`` (an MLA model's
+    :class:`~repro_torch.models.moe.RouteRecord`) keeps the experts each
+    prefill (tag ``("prefill", rid)``, the padded rung's rows) and each
+    decode step (tag ``("decode", n)``, a row per slot) chose.  After a
+    decode step ``last_logits`` holds its (slots, V) fp32 logits and
+    ``last_decoded`` the (slot, request) pairs it served.
     """
 
     def __init__(self, params, cfg, *, slots: int = 4, max_seq: int = 128,
                  prompt_buckets=None, metrics: ServingMetrics | None = None,
-                 injector=None, clock=time.monotonic, device="cuda"):
+                 injector=None, clock=time.monotonic, device="cuda",
+                 cache_dtype=None, route_record=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         super().__init__(
@@ -156,7 +181,17 @@ class LMEngine(ExecutionCore):
         self._clock = clock
         self.slots = int(slots)
         self.max_seq = int(max_seq)
-        self.cache = tfm.init_cache(cfg, slots, max_seq, device=self.device)
+        self.cache = tfm.init_cache(cfg, slots, max_seq, dtype=cache_dtype,
+                                    device=self.device)
+        #: the cache's per-layer tensors (k / v, or an MLA model's ckv / kpe)
+        self.layer_keys = tuple(k for k in self.cache
+                                if k not in ("slot_pos", "pos"))
+        self.route_record = route_record
+        self.last_logits: torch.Tensor | None = None
+        self.last_decoded: list[tuple[int, LMRequest]] = []
+        self.decode_count = 0
+        # each slot's next cache position, known on the host
+        self._next_pos = [0] * slots
         self.slot_req: list[LMRequest | None] = [None] * slots
         self.queue: list[LMRequest] = []
         self.done: list[LMRequest] = []
@@ -202,9 +237,9 @@ class LMEngine(ExecutionCore):
                 to_device(self.workload.placeholder(b), self.device))
         cache = self.cache
         rows = (torch.arange(self.slots, device=self.device),
-                (cache["pos"] % cache["k"].shape[2]).long())
+                (cache["pos"] % cache["slot_pos"].shape[1]).long())
         saved = {key: cache[key][:, rows[0], rows[1]].clone()
-                 for key in ("k", "v")}
+                 for key in self.layer_keys}
         slot_pos, pos = cache["slot_pos"].clone(), cache["pos"]
         toks = torch.zeros((self.slots,), dtype=torch.int32,
                            device=self.device)
@@ -242,16 +277,30 @@ class LMEngine(ExecutionCore):
             for s in range(self.slots)], dtype=torch.int32,
             device=self.device)
         decode = self.compiled_for("decode")
+        kw = {}
+        if self.route_record is not None:
+            kw["route"] = self.route_record.take(
+                self.slots, ("decode", self.decode_count))
+        self.last_decoded = [(s, r) for s, r in enumerate(self.slot_req)
+                             if r is not None]
+        positions, t = 0, self.cache["slot_pos"].shape[1]
+        for s, _ in self.last_decoded:
+            positions += min(self._next_pos[s] + 1, t)   # a rolling cache
+            self._next_pos[s] += 1
         t0 = time.perf_counter()
-        logits, self.cache = decode(self.cache, toks)
-        nxt = torch.argmax(logits, -1).cpu().numpy()   # waits for the step
+        with self.metrics.span("lm.decode"):
+            logits, self.cache = decode(self.cache, toks, **kw)
+            nxt = torch.argmax(logits, -1).cpu().numpy()  # waits for the step
         t1 = time.perf_counter()
-        active = sum(1 for r in self.slot_req if r is not None)
+        self.last_logits = logits
+        self.decode_count += 1
+        active = len(self.last_decoded)
         self.metrics.record_batch(t1 - t0, active, self.slots)
         self._record_wall_window(t0, t1, active)
         self.decode_s.append(t1 - t0)
         self.metrics.incr("decode_steps")
         self.metrics.incr("tokens_emitted", active)
+        self.metrics.incr("lm.kv_positions", positions)
         for s in range(self.slots):
             req = self.slot_req[s]
             if req is None:
@@ -289,21 +338,28 @@ class LMEngine(ExecutionCore):
     def _admit(self, slot: int, req: LMRequest) -> None:
         """Prefill one request (padded up the prompt ladder) and splice
         its ``[:pl]`` cache slice into the batch slot."""
+        with self.metrics.span("lm.admit"):
+            self._prefill_into(slot, req)
+
+    def _prefill_into(self, slot: int, req: LMRequest) -> None:
         pl = int(req.prompt.shape[0])
         bucket = self.bucket_for(pl)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :pl] = req.prompt
         prefill = self.compiled_for(bucket)
+        kw = {}
+        if self.route_record is not None:
+            kw["route"] = self.route_record.take(bucket, ("prefill", req.rid))
         t0 = time.perf_counter()
-        logits, _, pc = prefill(to_device(toks, self.device))
+        logits, _, pc = prefill(to_device(toks, self.device), **kw)
         # causal attention: positions < pl never see the pad tail, so
         # this slice and the pl-1 logits row match the unpadded prefill.
         # The reference splices through a zeroed copy of the slot; the
         # port zeroes the slot and writes the prompt's rows in place.  As
         # in the reference, a prompt longer than the rolling SWA cache
         # (T = window < pl <= max_seq) does not fit the slot and raises.
-        t = self.cache["k"].shape[2]
-        for key in ("k", "v"):
+        t = self.cache["slot_pos"].shape[1]
+        for key in self.layer_keys:
             dst = self.cache[key][:, slot]
             dst.zero_()
             dst[:, :pl] = pc[key][:, 0, :pl]
@@ -311,6 +367,7 @@ class LMEngine(ExecutionCore):
         sp[:pl] = torch.arange(pl, dtype=torch.int32, device=self.device)
         self.cache["slot_pos"][slot] = sp
         self.cache["pos"][slot] = pl
+        self._next_pos[slot] = pl
         first = int(torch.argmax(logits[0, pl - 1]))
         t1 = time.perf_counter()
         self.metrics.record_batch(t1 - t0, 1, bucket)
@@ -353,7 +410,17 @@ class LMEngine(ExecutionCore):
 
 
 def tiny_config(cfg):
-    """Shrink an arch config to a 2-layer miniature (same code path)."""
+    """Shrink an arch config to a 2-layer miniature (same code path).  An
+    MLA config keeps one dense and two MoE layers, with its latent and
+    head widths, experts and dense width cut too."""
+    if isinstance(cfg, MLAConfig):
+        return dataclasses.replace(
+            cfg, n_layers=3, d_model=64, n_heads=2, n_kv_heads=2, d_ff=32,
+            vocab_size=512, kv_lora_rank=32, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16, first_k_dense=1,
+            dense_d_ff=128, param_dtype="float32", compute_dtype="float32",
+            moe=dataclasses.replace(cfg.moe, n_experts=8, top_k=2,
+                                    n_shared_experts=1))
     return dataclasses.replace(
         cfg, n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
         vocab_size=512, compute_dtype="float32", remat="none")
