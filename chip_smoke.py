@@ -946,11 +946,12 @@ LOUD_COUNTERS = ("compile_failures", "dispatch_failures",
 
 
 def fault_counters(counters: dict) -> dict:
-    """An engine's counters without the staging ring's
-    (``serving.core.STAGING_COUNTERS``), which count every chunk staged
-    on the card."""
-    from repro_torch.serving.core import STAGING_COUNTERS
-    return {k: v for k, v in counters.items() if k not in STAGING_COUNTERS}
+    """An engine's counters without the staging and output rings'
+    (``serving.core.STAGING_COUNTERS``, ``D2H_COUNTERS``), which count
+    every chunk staged on the card and every output copied back."""
+    from repro_torch.serving.core import D2H_COUNTERS, STAGING_COUNTERS
+    quiet = STAGING_COUNTERS + D2H_COUNTERS
+    return {k: v for k, v in counters.items() if k not in quiet}
 
 
 def serving_front(dev, card: str, kernels, b1: Kernel, b2: Kernel,

@@ -21,11 +21,14 @@ Where the reference leaned on JAX's runtime, the port uses CUDA's own:
 host batches go to the card from a pinned host tensor with a
 ``non_blocking`` copy (from :meth:`ExecutionCore.infer`'s
 :class:`StagingRing` of reused slots, or on a side stream from the
-double buffer of :func:`serve_stream`); a dispatched result carries a
-``torch.cuda.Event`` recorded after its work, so readiness is
-``Event.query()`` and waiting is ``Event.synchronize()``
-(:class:`DeviceResult`).  No CUDA graph and no ``torch.compile`` yet: a
-bucket's callable launches eagerly.
+double buffer of :func:`serve_stream`).  In :meth:`ExecutionCore.infer`
+a chunk's logits come back the same way: a ``non_blocking`` copy into a
+reused pinned slot of a second ring is enqueued right behind the launch,
+and the result's ``torch.cuda.Event`` is recorded after that copy, so
+readiness (``Event.query()``) means the logits are on the host and
+realizing them reads host memory only (:class:`DeviceResult`).  No CUDA
+graph and no ``torch.compile`` yet: a bucket's callable launches
+eagerly.
 """
 
 from __future__ import annotations
@@ -52,6 +55,13 @@ MAX_STAGING_SLOTS = 2 * MAX_INFLIGHT_CHUNKS
 STAGING_COUNTERS = ("core.stage_reused", "core.stage_grown",
                     "core.stage_waited")
 
+#: The counters of a chunk's logits on CUDA, no fault either: the output
+#: ring's, one a launch (StagingRing.send), and one a realize
+#: (PendingResult.result): ``core.d2h_early``, copied into a pinned slot
+#: at launch, or ``core.d2h_late``, copied from the card at realize.
+D2H_COUNTERS = ("core.d2h_reused", "core.d2h_grown", "core.d2h_waited",
+                "core.d2h_early", "core.d2h_late")
+
 # Retained merged busy-window intervals for overlap-safe KGPS accounting.
 _MAX_WALL_WINDOWS = 64
 
@@ -63,19 +73,42 @@ class WatchdogTimeout(RuntimeError):
 
 
 class DeviceResult:
-    """A dispatched output tensor and the event recorded after its work.
+    """A dispatched output tensor and the event that says it is done.
 
-    The readiness surface the core polls: ``is_ready()`` is the event's
-    ``query()`` (always True for a CPU tensor), ``synchronize()`` waits
-    on it, and ``__array__`` copies the finished tensor to the host.
+    Given a ``ring`` (:meth:`ExecutionCore.infer` and
+    :meth:`ExecutionCore.warm` on CUDA), a CUDA tensor's copy into a
+    pinned slot of the ring is enqueued at once, on the current stream
+    right behind the work that writes the tensor, and the event is
+    recorded after that copy (:meth:`StagingRing.send`; ``count`` takes
+    the ring's counters): ``is_ready()`` then means the logits are on the
+    host, and ``__array__`` copies them out of the slot without touching
+    the card.  Otherwise the event is recorded after the work, and
+    ``__array__`` copies the finished tensor to the host itself.
+    ``is_ready()`` is the event's ``query()`` (always True for a CPU
+    tensor), ``synchronize()`` waits on it.
     """
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, ring=None, count=None):
         self.tensor = tensor
-        self._event = None
+        self._ring = ring
+        self._event = self._claim = None
         if tensor.is_cuda:
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(tensor.device))
+            stream = torch.cuda.current_stream(tensor.device)
+            if ring is not None:
+                self._claim = ring.send(tensor, stream, count)
+                self._event = self._claim.copied
+            else:
+                self._event = torch.cuda.Event()
+                self._event.record(stream)
+
+    @property
+    def d2h(self) -> str | None:
+        """How the logits reach the host: ``"early"``, copied into a
+        pinned slot at launch; ``"late"``, copied from the card by
+        ``__array__``; None for a CPU tensor, already there."""
+        if self._claim is not None:
+            return "early"
+        return "late" if self.tensor.is_cuda else None
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
@@ -85,9 +118,18 @@ class DeviceResult:
             self._event.synchronize()
         return self
 
+    def abandon(self) -> None:
+        """The caller gives up on this result (a watchdog timeout): its
+        slot, whose copy may still land, leaves the ring for good."""
+        if self._claim is not None:
+            self._ring.drop(self._claim)
+
     def __array__(self, dtype=None, copy=None):
-        self.synchronize()
-        arr = self.tensor.detach().cpu().numpy()
+        if self._claim is not None:
+            arr = self._claim.synchronize()
+        else:
+            self.synchronize()
+            arr = self.tensor.detach().cpu().numpy()
         return arr.astype(dtype) if dtype is not None else arr
 
     @property
@@ -159,8 +201,10 @@ class _DoubleBuffer:
 
 
 class _Slot:
-    """One pinned host buffer of a bucket's shape; rows ``[rows, bucket)``
-    are zero, and ``event`` completes when its last copy to the card has."""
+    """One pinned host buffer of a bucket's shape.  Staged: rows ``[rows,
+    bucket)`` are zero, and ``event`` completes when its last copy to the
+    card has.  Sent: ``event`` is the :class:`_Claim` of the chunk whose
+    logits it holds."""
 
     __slots__ = ("key", "tensor", "array", "rows", "event")
 
@@ -172,30 +216,70 @@ class _Slot:
         self.event = event
 
 
-class StagingRing:
-    """Reused host slots that chunks are staged in for their copy to the card.
+class _Claim:
+    """One chunk's logits in an output slot, and the slot's ``event`` in
+    its ring until the slot is taken again: done once the rows are out.
 
-    A slot has a bucket's full shape and the chunk's trailing shape and
-    dtype, and is allocated once, zeroed (pinned unless ``pin`` is
-    False).  :meth:`fill` copies a chunk's rows into a free slot in one
-    copy and zeroes only the pad rows that still hold an earlier
-    chunk's, so that the slot equals ``Workload.pad(chunk, bucket)``;
-    :meth:`release` hands it back once its copy to the card is enqueued,
-    recording the slot's event (from ``new_event``) on that copy's
-    stream.  A slot is free only when its event has completed: the oldest
-    slot is reused if free; else the ring grows, up to ``limit`` slots a
-    shape; past that :meth:`fill` waits on the oldest slot's event.  Each
-    fill counts ``core.stage_reused``, ``core.stage_grown`` or
-    ``core.stage_waited`` through the ``count`` it is given.  Thread-safe:
+    ``copied`` is recorded after the copy into the slot.  Waiting on the
+    claim (the chunk's realize, or the ring's wait at its limit) waits
+    on ``copied`` and copies the rows into an array of their own, once;
+    from then on the slot is free and the rows live in ``rows``."""
+
+    __slots__ = ("slot", "copied", "rows", "_lock")
+
+    def __init__(self, slot: _Slot, copied):
+        self.slot = slot
+        self.copied = copied
+        self.rows = None
+        self._lock = threading.Lock()
+
+    def record(self, stream) -> None:
+        self.copied.record(stream)
+
+    def query(self) -> bool:
+        return self.rows is not None
+
+    def synchronize(self) -> np.ndarray:
+        with self._lock:
+            if self.rows is None:
+                self.copied.synchronize()
+                self.rows = self.slot.array.copy()
+            return self.rows
+
+
+class StagingRing:
+    """Reused pinned host slots for the copies between host and card.
+
+    A slot is allocated once (pinned unless ``pin`` is False) and keyed
+    by its shape and dtype.  Staging: a slot has a bucket's full shape
+    and the chunk's trailing shape and dtype, zeroed at first.
+    :meth:`fill` copies a chunk's rows into a free slot in one copy and
+    zeroes only the pad rows that still hold an earlier chunk's, so that
+    the slot equals ``Workload.pad(chunk, bucket)``; :meth:`release`
+    hands it back once its copy to the card is enqueued, recording the
+    slot's event (from ``new_event``) on that copy's stream.  Sending:
+    :meth:`send` enqueues a device tensor's copy into a free slot of its
+    shape and hands the slot back at once, its event a :class:`_Claim`
+    that is done only when the rows have been copied out of the slot
+    again; :meth:`drop` takes the slot of a result given up on out of
+    the ring.
+
+    A slot is free only when its event has completed: the oldest slot is
+    reused if free; else the ring grows, up to ``limit`` slots a shape;
+    past that it waits on the oldest slot's event (for a sent slot: its
+    copy, and the move of its rows into an array of their own).  Each
+    fill or send counts ``<counter>reused``, ``<counter>grown`` or
+    ``<counter>waited`` through the ``count`` it is given.  Thread-safe:
     a slot being filled is out of the ring until it is released, so two
     threads never share one.
     """
 
     def __init__(self, *, limit: int = MAX_STAGING_SLOTS, pin: bool = True,
-                 new_event=torch.cuda.Event):
+                 new_event=torch.cuda.Event, counter: str = "core.stage_"):
         self._limit = limit
         self._pin = pin
         self._new_event = new_event
+        self._counter = counter
         self._lock = threading.Lock()
         self._ring: dict[tuple, collections.deque] = {}  # oldest first
         self._size: collections.Counter = collections.Counter()
@@ -211,7 +295,7 @@ class StagingRing:
                 self._size[key] += 1
             else:
                 how, slot = "waited", ring.popleft()
-        count("core.stage_" + how)
+        count(self._counter + how)
         if how == "waited":
             slot.event.synchronize()
         return slot
@@ -240,6 +324,32 @@ class StagingRing:
         slot.event.record(stream)
         with self._lock:
             self._ring[slot.key].append(slot)
+
+    def send(self, t: torch.Tensor, stream, count) -> _Claim:
+        """Enqueue ``t``'s ``non_blocking`` copy into a free slot of its
+        shape and dtype, on ``stream``, the current stream of ``t``'s
+        device, which its writer ran on; the claim's ``copied`` is
+        recorded there after the copy."""
+        key = (tuple(t.shape), t.dtype)
+        slot = self._take(key, count)
+        if slot is None:
+            slot = _Slot(key, torch.empty(key[0], dtype=t.dtype,
+                                          pin_memory=self._pin), None)
+        slot.tensor.copy_(t.detach(), non_blocking=True)
+        slot.event = claim = _Claim(slot, self._new_event())
+        self.release(slot, stream)
+        return claim
+
+    def drop(self, claim: _Claim) -> None:
+        """Take ``claim``'s slot out of the ring for good if it still holds
+        that claim's rows: a copy that may still land is never overwritten
+        by, or read as, another chunk's."""
+        slot = claim.slot
+        with self._lock:
+            ring = self._ring.get(slot.key, ())
+            if slot.event is claim and slot in ring:
+                ring.remove(slot)
+                self._size[slot.key] -= 1
 
 
 class Workload:
@@ -344,8 +454,12 @@ class PendingResult:
     ``result()`` waits (once), records metrics per chunk, and returns the
     host logits.  Recorded latency is dispatch-to-realization; KGPS wall
     time is overlap-safe in any realization order.  Each chunk's wait
-    and its copy to the host are the spans ``core.wait`` and
-    ``core.d2h``.
+    (on CUDA, for its copy into a pinned slot) and the copy of its rows
+    into host memory of their own are the spans ``core.wait`` and
+    ``core.d2h``; each chunk whose result says how its logits reached
+    the host (:attr:`DeviceResult.d2h`) counts ``core.d2h_early`` or
+    ``core.d2h_late``.  A chunk given up on at the watchdog's deadline,
+    and every chunk after it, is abandoned (:meth:`DeviceResult.abandon`).
     """
 
     def __init__(self, engine, chunks, *, record: bool = True):
@@ -364,20 +478,21 @@ class PendingResult:
     def _wait_ready(out, deadline: float | None) -> None:
         """Block until ``out`` is ready; past a ``deadline`` (absolute
         ``perf_counter`` time) raise :class:`WatchdogTimeout`.  The timed
-        wait blocks in a daemon thread, abandoned with a wedged result."""
+        wait polls ``is_ready()`` on the calling thread, as the event's
+        own ``synchronize()`` spins, with nothing between polls: a sleep,
+        a yield or a release of the interpreter lock there returns late
+        now and then, by a millisecond or more on a host with coarse
+        timers.  Other Python threads get the lock at the interpreter's
+        switch interval."""
         is_ready = getattr(out, "is_ready", None)
         if deadline is None or is_ready is None:
             _synchronize(out)
             return
-        if is_ready():
-            return
-        done = threading.Event()
-        threading.Thread(target=lambda: (_synchronize(out), done.set()),
-                         daemon=True).start()
-        if not done.wait(max(0.0, deadline - time.perf_counter())):
-            raise WatchdogTimeout(
-                "dispatched result not ready within the watchdog "
-                "budget; abandoning the in-flight buffer")
+        while not is_ready():
+            if time.perf_counter() >= deadline:
+                raise WatchdogTimeout(
+                    "dispatched result not ready within the watchdog "
+                    "budget; abandoning the in-flight buffer")
 
     def result(self, *, timeout_s: float | None = None) -> np.ndarray:
         if self._out is None:
@@ -385,17 +500,26 @@ class PendingResult:
                         else time.perf_counter() + timeout_s)
             outs = []
             t_first, t_last, events = None, None, 0
-            span = self._engine.metrics.span
-            for out, n_valid, bucket, t0 in self._chunks:
+            metrics = self._engine.metrics
+            span = metrics.span
+            for k, (out, n_valid, bucket, t0) in enumerate(self._chunks):
                 with span("core.wait"):
-                    self._wait_ready(out, deadline)
+                    try:
+                        self._wait_ready(out, deadline)
+                    except WatchdogTimeout:
+                        for c in self._chunks[k:]:
+                            getattr(c[0], "abandon", lambda: None)()
+                        raise
                 t1 = time.perf_counter()
                 if self._record:
-                    self._engine.metrics.record_batch(t1 - t0, n_valid, bucket)
+                    metrics.record_batch(t1 - t0, n_valid, bucket)
                 t_first = t0 if t_first is None else t_first
                 t_last, events = t1, events + n_valid
                 with span("core.d2h"):
                     outs.append(np.asarray(out)[:n_valid])
+                how = getattr(out, "d2h", None)
+                if how is not None:
+                    metrics.incr("core.d2h_" + how)
             if self._record and t_first is not None:
                 self._engine._record_wall_window(t_first, t_last, events)
             self._out = np.concatenate(outs, axis=0)
@@ -440,8 +564,12 @@ class ExecutionCore:
         self._wall_windows: list[tuple[float, float]] = []
         self._cache: dict[tuple, object] = {}
         # CUDA only: on the CPU, h2d hands the kernel the host tensor
-        # itself, which a reused slot would alias.
-        self._staging = StagingRing() if self.device.type == "cuda" else None
+        # itself, which a reused slot would alias, and an output is
+        # already in host memory.
+        on_card = self.device.type == "cuda"
+        self._staging = StagingRing() if on_card else None
+        self._outputs = StagingRing(counter="core.d2h_") if on_card \
+            else None
 
     @property
     def device(self) -> torch.device:
@@ -509,10 +637,12 @@ class ExecutionCore:
         return autotune.bucket_for(self.bucket_sizes, n_events)
 
     def warm(self, buckets=None) -> None:
-        """Build (and run once) the given buckets before traffic arrives."""
+        """Build (and run once) the given buckets before traffic arrives,
+        each output through a slot of the output ring, which keeps it."""
         for b in buckets if buckets is not None else self.bucket_sizes:
             x = to_device(self.workload.placeholder(b), self.device)
-            DeviceResult(self.compiled_for(b)(x)).synchronize()
+            np.asarray(DeviceResult(self.compiled_for(b)(x), self._outputs,
+                                    self.metrics.incr))
 
     # -- inference ----------------------------------------------------------
 
@@ -534,9 +664,12 @@ class ExecutionCore:
         the core's :class:`StagingRing`, whose event, recorded right after
         the slot's ``non_blocking`` copy to the card, keeps it from being
         refilled early; on the CPU it is padded (:meth:`Workload.pad`).
+        On CUDA its output's copy into a pinned slot of the output ring
+        is enqueued right behind the launch (:class:`DeviceResult`).
         Each chunk's host batch (the copy into its slot, or the pad), its
-        copy to the device and its launch are the spans ``core.stage``,
-        ``core.h2d`` and ``core.launch``.
+        copy to the device, and its launch with the output's copy and
+        event are the spans ``core.stage``, ``core.h2d`` and
+        ``core.launch``.
         """
         x = np.asarray(x)
         pin = bucket
@@ -578,7 +711,8 @@ class ExecutionCore:
                     xd = h2d(slot.tensor, self.device)
                 ring.release(slot, torch.cuda.current_stream(self.device))
             with span("core.launch"):
-                out = DeviceResult(fn(xd))               # async dispatch
+                out = DeviceResult(fn(xd), self._outputs,  # async dispatch
+                                   self.metrics.incr)
             if self.injector is not None:
                 out = self.injector.wrap_output(out, path=self.workload.name,
                                                 bucket=bucket)

@@ -241,7 +241,8 @@ class StuckBuffer:
     engine's realization path touches — ``is_ready()`` (polled by the
     watchdog), ``synchronize()`` (the blocking path; sleeps out the
     remaining stall so non-watchdog callers still terminate), and
-    ``__array__`` / ``shape`` / ``dtype`` for host materialization.
+    ``__array__`` / ``shape`` / ``dtype`` for host materialization;
+    ``abandon()`` and ``d2h`` pass to the wrapped result.
     """
 
     def __init__(self, inner, ready_at: float, clock=time.monotonic):
@@ -256,6 +257,13 @@ class StuckBuffer:
         while not self.is_ready():
             time.sleep(0.001)
         return self
+
+    def abandon(self) -> None:
+        getattr(self._inner, "abandon", lambda: None)()
+
+    @property
+    def d2h(self):
+        return getattr(self._inner, "d2h", None)
 
     def __array__(self, dtype=None, copy=None):
         arr = np.asarray(self._inner)

@@ -29,7 +29,7 @@ from repro_torch.kernels.fm_interaction import ops as fm_ops
 from repro_torch.kernels.flash_decode import kernel as FDK
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.jedi_linear import ops as jl_ops
-from repro_torch.serving.core import STAGING_COUNTERS
+from repro_torch.serving.core import D2H_COUNTERS, STAGING_COUNTERS
 
 
 @pytest.fixture
@@ -279,6 +279,8 @@ def test_sentinel_catches_each_silent_seam_on_its_kernel(cuda, path, seam,
     for k in ("compile_failures", "dispatch_failures", "nonfinite_batches",
               "watchdog_timeouts"):
         assert k not in c
+    # canaries and live batches realized through reused output slots
+    assert c["core.d2h_reused"] > 0 and "core.d2h_late" not in c
     from repro_torch.core import paths
     bar = 8 * paths.get(path).tolerance
     dev = f"canary_dev_b{eng.bucket_for(61)}"
@@ -323,6 +325,47 @@ def test_async_shadows_run_on_the_worker_stream(cuda):
     assert stream is not None and stream != torch.cuda.default_stream(cuda)
     assert seen and all(name == "sentinel-shadow" and s == stream
                         for name, s in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [256, 1024])
+@pytest.mark.parametrize("inflight", [2, 4])
+def test_async_results_equal_the_synchronous_copy(cuda, bucket, inflight):
+    """``fused_full`` at ``inflight`` results in flight, each launch queued
+    behind a ~1 ms sleep so that output slots are taken again while
+    earlier copies are pending: every realized result is bitwise equal
+    to the rung's output on the same padded batch copied to the host by
+    a synchronous ``.cpu()``, and each was copied at its launch."""
+    import collections
+
+    from repro_torch.serving.core import ExecutionCore
+    from repro_torch.serving.engine import TriggerWorkload
+    cfg = inet.JediNetConfig()
+    params = inet.init(0, cfg, scale="lecun", device=cuda)
+    core = ExecutionCore(TriggerWorkload(params, cfg, device=cuda),
+                         bucket_sizes=[bucket])
+    rng = np.random.RandomState(5)
+    sizes = (bucket, bucket - 24, 13, bucket // 2)
+    xs = [make_jets(rng, sizes[i % 4], cfg.n_objects)[0] for i in range(16)]
+    pend, outs = collections.deque(), {}
+    for i, x in enumerate(xs):
+        if len(pend) == inflight:
+            j, p = pend.popleft()
+            outs[j] = p.result(timeout_s=30.0)
+        torch.cuda._sleep(2_000_000)
+        pend.append((i, core.infer(x, sync=False)))
+    while pend:
+        j, p = pend.popleft()
+        outs[j] = p.result(timeout_s=30.0)
+    fn = core.compiled_for(bucket)
+    for i, x in enumerate(xs):
+        xd = torch.from_numpy(core.workload.pad(x, bucket)).to(cuda)
+        want = fn(xd).cpu().numpy()[:x.shape[0]]
+        assert outs[i].tobytes() == want.tobytes(), i
+    c = core.metrics.counters
+    assert c["core.d2h_early"] == len(xs) and "core.d2h_late" not in c
+    assert c["core.d2h_reused"] > 0
+    assert c.get("core.d2h_grown", 0) <= inflight + 1
 
 
 @pytest.mark.cuda
@@ -427,6 +470,9 @@ def test_trained_weights_serve_through_b1(cuda):
     assert FK.fused_forward_full_kernel_call.launches - before == len(xs)
     counters = eng.health()["counters"]
     assert sum(counters.pop(k, 0) for k in STAGING_COUNTERS) == len(xs)
+    d2h = {k: counters.pop(k) for k in D2H_COUNTERS if k in counters}
+    assert d2h.pop("core.d2h_early") == len(xs)
+    assert sum(d2h.values()) == len(xs)           # one slot a launch
     assert not counters
     for x, got in zip(xs, served):
         with torch.no_grad():
