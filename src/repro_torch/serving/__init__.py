@@ -22,7 +22,6 @@ from repro_torch.serving.core import (
     PendingResult,
     WatchdogTimeout,
     Workload,
-    serve_stream,
 )
 from repro_torch.serving.engine import ServingEngine, TriggerWorkload
 from repro_torch.serving.faults import (
@@ -77,5 +76,4 @@ __all__ = [
     "Workload",
     "kgps",
     "percentile",
-    "serve_stream",
 ]

@@ -10,6 +10,9 @@ Port of ``repro.serving.core``.  :class:`ExecutionCore` owns, for any
 * **async in-flight window** — :meth:`ExecutionCore.infer` with
   ``sync=False`` returns a :class:`PendingResult`; oversized requests
   pipeline chunks with at most :data:`MAX_INFLIGHT_CHUNKS` outstanding;
+* **stream loop** — :func:`pump_stream` serves a fixed-size batch stream
+  through an engine's own ``infer(sync=False)``, at most
+  :data:`STREAM_INFLIGHT` results in flight;
 * **watchdog** — realization with a ``timeout_s`` budget raises
   :class:`WatchdogTimeout` instead of blocking forever;
 * **wall-union metrics** — KGPS wall time is the union of dispatch
@@ -17,18 +20,17 @@ Port of ``repro.serving.core``.  :class:`ExecutionCore` owns, for any
 * **fault seams** — an optional ``FaultInjector`` is consulted at the
   compile / dispatch / input / output boundaries.
 
-Where the reference leaned on JAX's runtime, the port uses CUDA's own:
-host batches go to the card from a pinned host tensor with a
-``non_blocking`` copy (from :meth:`ExecutionCore.infer`'s
-:class:`StagingRing` of reused slots, or on a side stream from the
-double buffer of :func:`serve_stream`).  In :meth:`ExecutionCore.infer`
-a chunk's logits come back the same way: a ``non_blocking`` copy into a
-reused pinned slot of a second ring is enqueued right behind the launch,
-and the result's ``torch.cuda.Event`` is recorded after that copy, so
-readiness (``Event.query()``) means the logits are on the host and
-realizing them reads host memory only (:class:`DeviceResult`).  No CUDA
-graph and no ``torch.compile`` yet: a bucket's callable launches
-eagerly.
+Where the reference leaned on JAX's runtime, the port uses CUDA's own,
+and every trigger batch reaches the card through
+:meth:`ExecutionCore.infer`: each chunk is copied into a reused pinned
+slot of the core's :class:`StagingRing` and sent with a
+``non_blocking`` copy; its logits come back the same way, a
+``non_blocking`` copy into a reused pinned slot of a second ring
+enqueued right behind the launch, with the result's ``torch.cuda.Event``
+recorded after that copy, so readiness (``Event.query()``) means the
+logits are on the host and realizing them reads host memory only
+(:class:`DeviceResult`).  No CUDA graph and no ``torch.compile`` yet: a
+bucket's callable launches eagerly.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.kernels import autotune
 from repro_torch.serving.metrics import ServingMetrics, kgps
 
@@ -50,17 +51,21 @@ MAX_INFLIGHT_CHUNKS = 4
 # Most staging slots a StagingRing keeps for one bucket shape.
 MAX_STAGING_SLOTS = 2 * MAX_INFLIGHT_CHUNKS
 
+#: Results :func:`pump_stream` keeps in flight: the next batch is
+#: dispatched before the oldest is realized.
+STREAM_INFLIGHT = 2
+
 #: The counters StagingRing.fill bumps, one per chunk staged on CUDA: no
 #: fault, so checks for a quiet engine leave them out.
 STAGING_COUNTERS = ("core.stage_reused", "core.stage_grown",
                     "core.stage_waited")
 
 #: The counters of a chunk's logits on CUDA, no fault either: the output
-#: ring's, one a launch (StagingRing.send), and one a realize
-#: (PendingResult.result): ``core.d2h_early``, copied into a pinned slot
-#: at launch, or ``core.d2h_late``, copied from the card at realize.
+#: ring's, one a launch (StagingRing.send), and ``core.d2h_early``, one a
+#: realize (PendingResult.result) of logits copied into a pinned slot at
+#: launch.
 D2H_COUNTERS = ("core.d2h_reused", "core.d2h_grown", "core.d2h_waited",
-                "core.d2h_early", "core.d2h_late")
+                "core.d2h_early")
 
 # Retained merged busy-window intervals for overlap-safe KGPS accounting.
 _MAX_WALL_WINDOWS = 64
@@ -73,49 +78,38 @@ class WatchdogTimeout(RuntimeError):
 
 
 class DeviceResult:
-    """A dispatched output tensor and the event that says it is done.
+    """A dispatched output tensor and the way its logits reach the host.
 
-    Given a ``ring`` (:meth:`ExecutionCore.infer` and
-    :meth:`ExecutionCore.warm` on CUDA), a CUDA tensor's copy into a
-    pinned slot of the ring is enqueued at once, on the current stream
-    right behind the work that writes the tensor, and the event is
-    recorded after that copy (:meth:`StagingRing.send`; ``count`` takes
-    the ring's counters): ``is_ready()`` then means the logits are on the
-    host, and ``__array__`` copies them out of the slot without touching
-    the card.  Otherwise the event is recorded after the work, and
-    ``__array__`` copies the finished tensor to the host itself.
-    ``is_ready()`` is the event's ``query()`` (always True for a CPU
-    tensor), ``synchronize()`` waits on it.
+    A CUDA tensor's copy into a pinned slot of ``ring`` (the core's
+    output ring) is enqueued at once, on the current stream right behind
+    the work that writes the tensor, and an event is recorded after that
+    copy (:meth:`StagingRing.send`; ``count`` takes the ring's counters):
+    ``is_ready()`` then means the logits are on the host, and
+    ``__array__`` copies them out of the slot without touching the card.
+    A CPU tensor is already on the host: it is always ready.
+    ``synchronize()`` waits for the copy.
     """
 
     def __init__(self, tensor: torch.Tensor, ring=None, count=None):
         self.tensor = tensor
         self._ring = ring
-        self._event = self._claim = None
+        self._claim = None
         if tensor.is_cuda:
-            stream = torch.cuda.current_stream(tensor.device)
-            if ring is not None:
-                self._claim = ring.send(tensor, stream, count)
-                self._event = self._claim.copied
-            else:
-                self._event = torch.cuda.Event()
-                self._event.record(stream)
+            self._claim = ring.send(
+                tensor, torch.cuda.current_stream(tensor.device), count)
 
     @property
     def d2h(self) -> str | None:
-        """How the logits reach the host: ``"early"``, copied into a
-        pinned slot at launch; ``"late"``, copied from the card by
-        ``__array__``; None for a CPU tensor, already there."""
-        if self._claim is not None:
-            return "early"
-        return "late" if self.tensor.is_cuda else None
+        """``"early"``: the logits were copied into a pinned slot at
+        launch; None for a CPU tensor, already on the host."""
+        return None if self._claim is None else "early"
 
     def is_ready(self) -> bool:
-        return self._event is None or self._event.query()
+        return self._claim is None or self._claim.copied.query()
 
     def synchronize(self) -> "DeviceResult":
-        if self._event is not None:
-            self._event.synchronize()
+        if self._claim is not None:
+            self._claim.copied.synchronize()
         return self
 
     def abandon(self) -> None:
@@ -128,8 +122,7 @@ class DeviceResult:
         if self._claim is not None:
             arr = self._claim.synchronize()
         else:
-            self.synchronize()
-            arr = self.tensor.detach().cpu().numpy()
+            arr = self.tensor.detach().numpy()
         return arr.astype(dtype) if dtype is not None else arr
 
     @property
@@ -161,43 +154,6 @@ def h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device`` (:func:`stage`, then :func:`h2d`)."""
     return h2d(stage(x, device), device)
-
-
-class _DoubleBuffer:
-    """Two pinned host buffers feeding a CUDA device from a side stream.
-
-    ``put`` copies the next batch into the buffer the previous-but-one
-    transfer used (after that transfer finished), starts its H2D copy on
-    the copy stream, and makes the compute stream wait for it — so the
-    transfer of batch k+1 overlaps the compute of batch k.
-    """
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._copy_stream = torch.cuda.Stream(device)
-        self._bufs = [None, None]
-        self._done = [None, None]
-        self._k = 0
-
-    def put(self, x: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(np.ascontiguousarray(x))
-        k, self._k = self._k, self._k ^ 1
-        buf = self._bufs[k]
-        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
-            buf = self._bufs[k] = torch.empty(src.shape, dtype=src.dtype,
-                                              pin_memory=True)
-        elif self._done[k] is not None:
-            self._done[k].synchronize()        # its last H2D has finished
-        buf.copy_(src)
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            dev = buf.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        self._done[k] = done
-        compute.wait_event(done)
-        dev.record_stream(compute)
-        return dev
 
 
 class _Slot:
@@ -400,54 +356,6 @@ class Workload:
         return None
 
 
-def serve_stream(fwd, stream, *, warmup: int = 2, metrics=None, bucket=None,
-                 device="cuda"):
-    """Double-buffered device-feed loop; returns (latencies, events, wall).
-
-    ``fwd`` is an async-dispatch callable on device tensors; latencies
-    are seconds from host handoff to logits ready.  On CUDA (the
-    default; raises without a card), batch k+1's pinned H2D copy is
-    issued on a side stream while batch k computes; ``device="cpu"``
-    feeds the CPU.  The first ``warmup`` batches are excluded from the
-    stats; a stream no longer than ``warmup`` yields empty stats, not a
-    crash.
-    """
-    device = resolve_device(device)
-    put = _DoubleBuffer(device).put if device.type == "cuda" \
-        else (lambda a: to_device(a, device))
-    latencies = []
-    events = 0
-    it = iter(stream)
-    try:
-        nxt = put(next(it))
-    except StopIteration:
-        return latencies, events, 0.0
-
-    t_start = time.perf_counter() if warmup == 0 else None
-    k = 0
-    while nxt is not None:
-        cur = nxt
-        t0 = time.perf_counter()
-        out = DeviceResult(fwd(cur))         # async dispatch
-        try:
-            nxt = put(next(it))              # overlap next H2D with compute
-        except StopIteration:
-            nxt = None
-        out.synchronize()
-        t1 = time.perf_counter()
-        k += 1
-        if k <= warmup:                      # exclude warm-up from stats
-            t_start = time.perf_counter()
-            continue
-        latencies.append(t1 - t0)
-        events += cur.shape[0]
-        if metrics is not None:
-            metrics.record_batch(t1 - t0, cur.shape[0],
-                                 bucket or cur.shape[0])
-    wall = (time.perf_counter() - t_start) if t_start else 0.0
-    return latencies, events, wall
-
-
 class PendingResult:
     """In-flight inference: dispatched to the device, not yet waited on.
 
@@ -456,10 +364,10 @@ class PendingResult:
     time is overlap-safe in any realization order.  Each chunk's wait
     (on CUDA, for its copy into a pinned slot) and the copy of its rows
     into host memory of their own are the spans ``core.wait`` and
-    ``core.d2h``; each chunk whose result says how its logits reached
-    the host (:attr:`DeviceResult.d2h`) counts ``core.d2h_early`` or
-    ``core.d2h_late``.  A chunk given up on at the watchdog's deadline,
-    and every chunk after it, is abandoned (:meth:`DeviceResult.abandon`).
+    ``core.d2h``; each chunk whose logits were copied into a pinned slot
+    at launch (:attr:`DeviceResult.d2h`) counts ``core.d2h_early``.  A
+    chunk given up on at the watchdog's deadline, and every chunk after
+    it, is abandoned (:meth:`DeviceResult.abandon`).
     """
 
     def __init__(self, engine, chunks, *, record: bool = True):
@@ -646,9 +554,6 @@ class ExecutionCore:
 
     # -- inference ----------------------------------------------------------
 
-    def _pad(self, x: np.ndarray, bucket: int) -> np.ndarray:
-        return self.workload.pad(x, bucket)
-
     def infer(self, x, *, record: bool = True, sync: bool = True,
               timeout_s: float | None = None, bucket: int | None = None):
         """Serve ``x`` (n, ...): pad to bucket, dispatch, slice back.
@@ -701,7 +606,8 @@ class ExecutionCore:
             ring = self._staging
             if ring is None:
                 with span("core.stage"):
-                    xh = stage(self._pad(chunk, bucket), self.device)
+                    xh = stage(self.workload.pad(chunk, bucket),
+                               self.device)
                 with span("core.h2d"):
                     xd = h2d(xh, self.device)
             else:
@@ -728,31 +634,62 @@ class ExecutionCore:
         return pending.result() if sync else pending
 
     def run_stream(self, stream, *, warmup: int = 2) -> dict:
-        """Pump a fixed-size batch stream through the double-buffered feed
-        loop (the trigger CLI's hot path).  All batches share one size;
-        each is padded to its ladder bucket before dispatch."""
-        stream = list(stream)
-        if not stream:
-            return {"latencies": [], "events": 0, "wall_s": 0.0,
-                    "bucket": None, "kgps": float("nan")}
-        sizes = {b.shape[0] for b in stream}
-        if len(sizes) != 1:
-            raise ValueError(f"stream batches differ in size: {sorted(sizes)}")
-        n_valid = sizes.pop()
-        if n_valid > self.bucket_sizes[-1]:
-            raise ValueError(
-                f"stream batch size {n_valid} exceeds the top bucket "
-                f"{self.bucket_sizes[-1]}; build the engine with "
-                f"max_batch >= {n_valid} or chunk through infer()")
-        bucket = self.bucket_for(n_valid)
-        fwd = self.compiled_for(bucket)
-        padded = [self._pad(np.asarray(b), bucket) for b in stream]
-        lat, _, wall = serve_stream(fwd, padded, warmup=warmup,
-                                    device=self.device)
-        # KGPS counts VALID events only — padding rows are not throughput.
-        events = n_valid * len(lat)
-        for t in lat:
-            self.metrics.record_batch(t, n_valid, bucket)
-        self.metrics.record_wall(wall, events)
-        return {"latencies": lat, "events": events, "wall_s": wall,
-                "bucket": bucket, "kgps": kgps(events, wall)}
+        """Serve a fixed-size batch stream (:func:`pump_stream`)."""
+        return pump_stream(self, stream, warmup=warmup)
+
+
+def pump_stream(engine, stream, *, warmup: int = 2) -> dict:
+    """Serve a stream of equal-size batches through ``engine.infer(x,
+    sync=False)`` (an :class:`ExecutionCore` or a ``ResilientEngine``),
+    the trigger CLI's hot path: a batch is dispatched once fewer than
+    :data:`STREAM_INFLIGHT` are in flight, the oldest realized first.
+
+    The first ``warmup`` batches are served with ``record=False``; the
+    engine records the others itself, each batch's latency and the
+    wall-union KGPS, as on any ``infer``.  Returns ``latencies`` (seconds
+    from the call into the engine to the logits on the host, recorded
+    batches only), ``events`` (their valid rows; padding is not
+    throughput), ``wall_s`` (first recorded call to last logits),
+    ``bucket`` and ``kgps``.  A stream no longer than ``warmup`` gives
+    empty stats and KGPS nan.
+    """
+    stream = list(stream)
+    if not stream:
+        return {"latencies": [], "events": 0, "wall_s": 0.0,
+                "bucket": None, "kgps": float("nan")}
+    sizes = {b.shape[0] for b in stream}
+    if len(sizes) != 1:
+        raise ValueError(f"stream batches differ in size: {sorted(sizes)}")
+    n_valid = sizes.pop()
+    top = engine.bucket_sizes[-1]
+    if n_valid > top:
+        raise ValueError(
+            f"stream batch size {n_valid} exceeds the top bucket {top}; "
+            f"build the engine with max_batch >= {n_valid} or chunk "
+            "through infer()")
+    pend: collections.deque = collections.deque()
+    latencies = []
+
+    def realize() -> None:
+        t_call, pending, record = pend.popleft()
+        pending.result()
+        if record:
+            latencies.append(time.perf_counter() - t_call)
+
+    t_first = None
+    for k, x in enumerate(stream):
+        if len(pend) >= STREAM_INFLIGHT:
+            realize()
+        record = k >= warmup
+        t_call = time.perf_counter()
+        if record and t_first is None:
+            t_first = t_call
+        pend.append((t_call, engine.infer(x, record=record, sync=False),
+                     record))
+    while pend:
+        realize()
+    wall = 0.0 if t_first is None else time.perf_counter() - t_first
+    events = n_valid * len(latencies)
+    return {"latencies": latencies, "events": events, "wall_s": wall,
+            "bucket": engine.bucket_for(n_valid),
+            "kgps": kgps(events, wall)}

@@ -44,7 +44,6 @@ from repro_torch.serving.core import (  # noqa: F401  (re-exported)
     PendingResult,
     WatchdogTimeout,
     Workload,
-    serve_stream,
 )
 from repro_torch.serving.metrics import ServingMetrics
 

@@ -45,6 +45,7 @@ import time
 import numpy as np
 
 from repro_torch.core import paths as forward_paths
+from repro_torch.serving.core import pump_stream
 from repro_torch.serving.engine import ServingEngine, WatchdogTimeout
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.metrics import ServingMetrics
@@ -100,9 +101,7 @@ class ResilientPending:
 
     def result(self) -> np.ndarray:
         if not self._done:
-            self._out = self._engine._realize(
-                self, self._pending, self._x, self._bucket, self._level,
-                record=self._record)
+            self._out = self._engine._realize(self)
             self._done = True
             self._pending = None     # free device buffers
         return self._out
@@ -395,14 +394,6 @@ class ResilientEngine:
         if level > self._base_level:
             self.metrics.incr("fallback_batches")
 
-    def _serve_once(self, level: int, x, *, record: bool) -> np.ndarray:
-        out = self._engine_for(level).infer(
-            x, record=record, timeout_s=self.watchdog_s)
-        if not np.isfinite(out).all():
-            raise NonFiniteOutput(
-                f"rung {self.chain[level]!r} returned non-finite logits")
-        return out
-
     def _last_resort(self, n: int) -> np.ndarray:
         """Every rung failed: return NaN logits and mark the engine down."""
         self.metrics.incr("failed_requests")
@@ -410,30 +401,51 @@ class ResilientEngine:
         n_targets = getattr(self.cfg, "n_targets", 1)
         return np.full((n, n_targets), np.nan, np.float32)
 
-    def _serve_ladder(self, x, *, record: bool = True,
-                      start: int | None = None) -> np.ndarray:
-        """Serve ``x`` trying rungs from ``start`` (default: the probe /
-        active decision) downward.  Never raises."""
-        x = np.asarray(x)
-        bucket = self.bucket_for(min(x.shape[0], self.bucket_sizes[-1]))
-        st = self._bucket_state(bucket)
-        lvl = self._start_level(st, self._clock()) if start is None \
-            else start
-        while lvl < len(self.chain):
-            if lvl in self._construct_failed:
-                lvl += 1
+    def _dispatch(self, st: _BucketState, x, level: int, record: bool):
+        """Dispatch ``x`` from rung ``level`` down the ladder: rungs that
+        failed to construct are skipped, and a rung that raises at
+        dispatch is failed (:meth:`_rung_failed`) and the next one tried.
+        Returns the level and its pending result, or ``(len(chain),
+        None)`` when no rung took it."""
+        while level < len(self.chain):
+            if level in self._construct_failed:
+                level += 1
                 continue
             try:
-                out = self._serve_once(lvl, x, record=record)
+                # dispatch-time faults surface here; realization-time
+                # faults (stuck, NaN) in _settle
+                return level, self._engine_for(level).infer(
+                    x, record=record, sync=False)
             except Exception as e:   # noqa: BLE001 — ladder catches all
-                self._rung_failed(st, lvl, self._clock(), e)
-                lvl += 1
+                self._rung_failed(st, level, self._clock(), e)
+                level += 1
+        return level, None
+
+    def _settle(self, x, bucket: int, level: int, pending,
+                record: bool) -> np.ndarray:
+        """Realize ``pending`` (dispatched at ``level``) under the
+        watchdog and check its logits are finite; a failure fails the
+        rung and re-dispatches from the next one down, until a rung
+        serves or the ladder is spent (:meth:`_last_resort`, the bucket
+        ``down``).  A served, recorded request goes to the sentinel.
+        Never raises."""
+        st = self._bucket_state(bucket)
+        while pending is not None:
+            try:
+                out = pending.result(timeout_s=self.watchdog_s)
+                if not np.isfinite(out).all():
+                    raise NonFiniteOutput(
+                        f"rung {self.chain[level]!r} returned non-finite "
+                        "logits")
+            except Exception as e:   # noqa: BLE001 — ladder catches all
+                self._rung_failed(st, level, self._clock(), e)
+                level, pending = self._dispatch(st, x, level + 1, record)
                 continue
-            self._rung_served(st, lvl)
+            self._rung_served(st, level)
             if record and self.sentinel is not None:
                 # canaries ride the RUNG engines directly, so the
                 # sentinel never re-enters this ladder
-                self.sentinel.observe(x, out, bucket, lvl)
+                self.sentinel.observe(x, out, bucket, level)
             return out
         st.down = True
         return self._last_resort(x.shape[0])
@@ -453,9 +465,8 @@ class ResilientEngine:
         demotion, happen before traffic arrives)."""
         c = self.cfg
         for b in buckets if buckets is not None else self.bucket_sizes:
-            self._serve_ladder(
-                np.zeros((b, c.n_objects, c.n_features), np.float32),
-                record=False)
+            self.infer(np.zeros((b, c.n_objects, c.n_features), np.float32),
+                       record=False)
 
     def infer(self, x, *, deadline: float | None = None, record: bool = True,
               sync: bool = True):
@@ -470,59 +481,32 @@ class ResilientEngine:
         if deadline is not None and self._clock() >= deadline:
             self._shed(x.shape[0])
             return None
-        if sync:
-            return self._serve_ladder(x, record=record)
-
-        while len(self._inflight) >= self.max_inflight:
-            self._inflight[0].result()   # realization removes it
-            if deadline is not None and self._clock() >= deadline:
-                self._shed(x.shape[0])   # expired while backpressured
-                return None
+        if not sync:
+            while len(self._inflight) >= self.max_inflight:
+                self._inflight[0].result()   # realization removes it
+                if deadline is not None and self._clock() >= deadline:
+                    self._shed(x.shape[0])   # expired while backpressured
+                    return None
         bucket = self.bucket_for(min(x.shape[0], self.bucket_sizes[-1]))
         st = self._bucket_state(bucket)
-        lvl = self._start_level(st, self._clock())
-        pending = None
-        while lvl < len(self.chain):
-            if lvl in self._construct_failed:
-                lvl += 1
-                continue
-            try:
-                # dispatch-time faults surface here; realization-time
-                # faults (stuck, NaN) in ResilientPending.result()
-                pending = self._engine_for(lvl).infer(
-                    x, record=record, sync=False)
-                break
-            except Exception as e:   # noqa: BLE001 — ladder catches all
-                self._rung_failed(st, lvl, self._clock(), e)
-                lvl += 1
-        if pending is None:
-            st.down = True
-            rp = ResilientPending(self, x, bucket, len(self.chain), None,
-                                  record)
-            rp._out, rp._done = self._last_resort(x.shape[0]), True
-            return rp
+        lvl, pending = self._dispatch(st, x, self._start_level(
+            st, self._clock()), record)
+        if sync:
+            return self._settle(x, bucket, lvl, pending, record)
         rp = ResilientPending(self, x, bucket, lvl, pending, record)
+        if pending is None:          # no rung took it: down at once
+            rp._out, rp._done = self._settle(x, bucket, lvl, None,
+                                             record), True
+            return rp
         self._inflight.append(rp)
         self._gauge_inflight()
         return rp
 
-    def _realize(self, rp: ResilientPending, pending, x, bucket: int,
-                 level: int, *, record: bool) -> np.ndarray:
-        """Realize an async dispatch; recover down-ladder on failure."""
-        st = self._bucket_state(bucket)
-        try:
-            out = pending.result(timeout_s=self.watchdog_s)
-            if not np.isfinite(out).all():
-                raise NonFiniteOutput(
-                    f"rung {self.chain[level]!r} returned non-finite "
-                    "logits")
-        except Exception as e:       # noqa: BLE001 — ladder catches all
-            self._rung_failed(st, level, self._clock(), e)
-            out = self._serve_ladder(x, record=record, start=level + 1)
-        else:
-            self._rung_served(st, level)
-            if record and self.sentinel is not None:
-                self.sentinel.observe(x, out, bucket, level)
+    def _realize(self, rp: ResilientPending) -> np.ndarray:
+        """Realize an async dispatch (:meth:`_settle`) and take it out of
+        the in-flight queue."""
+        out = self._settle(rp._x, rp._bucket, rp._level, rp._pending,
+                           rp._record)
         if rp in self._inflight:
             self._inflight.remove(rp)
             self._gauge_inflight()
@@ -550,36 +534,16 @@ class ResilientEngine:
         return rp.result() if sync else rp
 
     def run_stream(self, stream, *, warmup: int = 2) -> dict:
-        """The double-buffered fixed-size stream loop, ladder-protected: a
-        rung that fails to build (or raises mid-stream) demotes and the
-        WHOLE stream re-runs on the fallback."""
-        stream = list(stream)
-        if not stream:
-            return self._engines[self._base_level].run_stream(stream,
-                                                              warmup=warmup)
-        bucket = self.bucket_for(stream[0].shape[0])
-        st = self._bucket_state(bucket)
-        lvl = self._start_level(st, self._clock())
-        last_err: Exception | None = None
-        while lvl < len(self.chain):
-            if lvl in self._construct_failed:
-                lvl += 1
-                continue
-            try:
-                res = self._engine_for(lvl).run_stream(stream, warmup=warmup)
-            except Exception as e:   # noqa: BLE001 — ladder catches all
-                self._rung_failed(st, lvl, self._clock(), e)
-                last_err = e
-                lvl += 1
-                continue
-            self._rung_served(st, lvl)
-            if self.sentinel is not None:
-                # post-hoc: the hot stream loop itself stays untouched
-                self.sentinel.verify_stream(stream, bucket, lvl)
-            return res
-        st.down = True
-        self.metrics.incr("failed_requests")
-        self._last_down = self._clock()
-        raise RuntimeError(
-            f"every rung of {self.chain} failed for the stream "
-            f"(bucket {bucket}); last error: {last_err!r}") from last_err
+        """Serve a fixed-size batch stream through this ladder
+        (:func:`~repro_torch.serving.core.pump_stream` over
+        :meth:`infer`): a rung that fails mid-stream demotes the bucket
+        and the batch re-serves down the ladder, and the sentinel
+        observes each recorded batch.  Raises if the stream's bucket
+        ends ``down``."""
+        res = pump_stream(self, stream, warmup=warmup)
+        bucket = res["bucket"]
+        if bucket is not None and self._bucket_state(bucket).down:
+            raise RuntimeError(
+                f"every rung of {self.chain} failed for the stream "
+                f"(bucket {bucket})")
+        return res

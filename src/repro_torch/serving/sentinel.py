@@ -210,41 +210,6 @@ class Sentinel:
         eng._quarantine(bucket, lvl)
         return False
 
-    def verify_stream(self, stream, bucket: int, level: int) -> None:
-        """Post-hoc sentinel pass over a served fixed-size stream.
-
-        The double-buffered stream loop stays untouched.  Afterwards a
-        duty-cycled sample of its ticks re-runs through the live rung and
-        shadows synchronously against the terminal oracle, and the bucket
-        canaries on its ``canary_every`` cadence with every tick counted
-        as one request (a bucket's first stream always canaries).  The
-        elapsed time lands in the ``sentinel_verify_s`` gauge, to be read
-        against the stream's wall."""
-        t0 = self._clock()
-        if self.config.shadow_rate > 0 and level < self.terminal_level:
-            stride = max(1, int(round(1.0 / self.config.shadow_rate)))
-            try:
-                eng = self._engine._engine_for(level)
-            except Exception:   # noqa: BLE001 — rung gone: canary only
-                eng = None
-            if eng is not None:
-                for i in range(stride - 1, len(stream), stride):
-                    x = np.asarray(stream[i])
-                    try:
-                        out = eng.infer(x, record=False)
-                    except Exception:   # noqa: BLE001 — loud: ladder's job
-                        continue
-                    self._shadow_job(x, np.asarray(out), bucket, level)
-        cnt = self._since.get(bucket, self.config.canary_every)
-        for _ in range(len(stream)):
-            cnt += 1
-            if cnt >= self.config.canary_every:
-                self.canary(bucket)
-                cnt = 0
-        self._since[bucket] = cnt
-        self._apply_pending()
-        self._engine.metrics.gauge("sentinel_verify_s", self._clock() - t0)
-
     def detail(self) -> dict:
         """Sentinel block for ``health()``."""
         with self._stats_lock:

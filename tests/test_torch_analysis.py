@@ -280,7 +280,7 @@ def test_wall_clock_allowlist_holds_exactly_the_seam_owners():
     by_file = {}
     for f in findings:
         by_file[f.location] = by_file.get(f.location, 0) + 1
-    assert by_file == {"src/repro_torch/serving/core.py": 9,
+    assert by_file == {"src/repro_torch/serving/core.py": 7,
                        "src/repro_torch/serving/lm.py": 6,
                        "src/repro_torch/serving/trigger.py": 2}
 
@@ -299,8 +299,8 @@ def test_cli_reports_findings_with_a_given_config(tmp_path, capsys):
     rc = main(["--lint-only", "--rules", "wall-clock", "--config", str(empty),
                "--root", str(REPO)])
     out = capsys.readouterr()
-    assert rc == 1 and out.out.count("[wall-clock]") == 17
-    assert "17 finding(s)" in out.err
+    assert rc == 1 and out.out.count("[wall-clock]") == 15
+    assert "15 finding(s)" in out.err
 
 
 # ---------------------------------------------------------------------------

@@ -280,7 +280,7 @@ def test_sentinel_catches_each_silent_seam_on_its_kernel(cuda, path, seam,
               "watchdog_timeouts"):
         assert k not in c
     # canaries and live batches realized through reused output slots
-    assert c["core.d2h_reused"] > 0 and "core.d2h_late" not in c
+    assert c["core.d2h_reused"] > 0 and c["core.d2h_early"] >= 12
     from repro_torch.core import paths
     bar = 8 * paths.get(path).tolerance
     dev = f"canary_dev_b{eng.bucket_for(61)}"
@@ -363,7 +363,7 @@ def test_async_results_equal_the_synchronous_copy(cuda, bucket, inflight):
         want = fn(xd).cpu().numpy()[:x.shape[0]]
         assert outs[i].tobytes() == want.tobytes(), i
     c = core.metrics.counters
-    assert c["core.d2h_early"] == len(xs) and "core.d2h_late" not in c
+    assert c["core.d2h_early"] == len(xs)
     assert c["core.d2h_reused"] > 0
     assert c.get("core.d2h_grown", 0) <= inflight + 1
 

@@ -391,19 +391,28 @@ def test_rotating_silent_seams_detected_at_1_requalified_at_9(jedi8):
 # -- stream verification and the CLI ---------------------------------------
 
 
-def test_run_stream_verifies_post_hoc_and_catches_corruption(jedi8):
+def test_run_stream_observes_each_batch_and_catches_corruption(jedi8):
+    """A stream's recorded batches each pass the per-batch ``observe``:
+    the first one is shadowed (stride 1) and canaries the corrupted rung,
+    which is quarantined; no later batch is shadowed, as the duty cycle
+    skips a quarantined bucket."""
     _, _, x, *_ = jedi8
     inj = FaultInjector()
     inj.arm("weight_corrupt", path="fused_full", times=1, factor=8.0)
     eng = _engine(jedi8, inj, sentinel=SentinelConfig(
-        canary_every=4, shadow_rate=0.5, shadow_sync=True))
+        canary_every=4, shadow_rate=1.0, shadow_sync=True))
     res = eng.run_stream([x] * 6, warmup=1)
     assert res["events"] == 25
     h = eng.health()
     assert h["state"] == "quarantined"
     assert h["counters"]["canaries"] >= 1
-    assert h["counters"]["shadow_requests"] == 3
-    assert eng.metrics.gauge_value("sentinel_verify_s") > 0
+    assert h["counters"]["canary_mismatches"] == 1
+    assert h["counters"]["quarantines"] == 1
+    # batch 2 was dispatched on the corrupted rung before batch 1's
+    # realize quarantined it; batches 3-5 ride a quarantined bucket
+    assert h["counters"]["shadow_requests"] == 1
+    assert h["counters"]["shadow_disagreements"] == 1
+    assert eng.metrics.batches == 5
 
 
 def test_cli_drill_with_sentinel_quarantines(capsys):

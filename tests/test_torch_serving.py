@@ -25,9 +25,8 @@ from repro_torch.serving import (
     FaultInjector,
     ResilientEngine,
     ServingEngine,
-    ServingMetrics,
-    serve_stream,
 )
+from repro_torch.serving.core import STREAM_INFLIGHT, pump_stream
 from repro_torch.serving.faults import StuckBuffer
 from repro_torch.serving.trigger import make_stream
 
@@ -125,13 +124,35 @@ def test_compile_failure_demotes_and_fallback_serves(small):
     assert eng.health()["state"] == "degraded"
 
 
-def test_nonfinite_output_demotes(small):
+# Each loud seam, armed once on the primary rung: the counter it bumps.
+LOUD_ONCE = {"compile": "compile_failures", "dispatch": "dispatch_failures",
+             "output_nan": "nonfinite_batches", "stuck": "watchdog_timeouts"}
+
+
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+@pytest.mark.parametrize("seam", sorted(LOUD_ONCE))
+def test_one_ladder_walk_for_sync_and_async(small, seam, sync):
+    """Both ways into the ladder take the same walk: one fault on the
+    primary rung gives the same demotion, counters, active path and
+    logits whether the request is realized at once or later."""
     *_, x, ref = small
     inj = FaultInjector()
-    inj.arm("output_nan", path="fused_full", times=1)
-    eng = _engine(small, inj)
-    np.testing.assert_allclose(eng.infer(x), ref, atol=5e-4)
-    assert eng.metrics.counter("nonfinite_batches") == 1
+    inj.arm(seam, path="fused_full", times=1,
+            **({"delay_s": 5.0} if seam == "stuck" else {}))
+    eng = _engine(small, inj, watchdog_s=0.05 if seam == "stuck" else 5.0)
+    t0 = time.perf_counter()
+    out = eng.infer(x) if sync else eng.infer(x, sync=False).result()
+    assert time.perf_counter() - t0 < 2.0
+    np.testing.assert_allclose(out, ref, atol=5e-4)
+    assert inj.fired(seam) == 1
+    assert eng.active_path(eng.bucket_for(5)) == "sr_split"
+    h = eng.health()
+    assert h["counters"] == {
+        LOUD_ONCE[seam]: 1, "demotions": 1, "fallback_batches": 1}
+    assert h["state"] == "degraded" and h["inflight"] == 0
+    # a NaN batch is recorded when it is realized, before the ladder's
+    # finite check sees it; a timed-out one never is
+    assert eng.metrics.batches == (2 if seam == "output_nan" else 1)
 
 
 def test_stuck_dispatch_trips_the_watchdog(small):
@@ -143,17 +164,6 @@ def test_stuck_dispatch_trips_the_watchdog(small):
     np.testing.assert_allclose(eng.infer(x), ref, atol=5e-4)
     assert time.perf_counter() - t0 < 2.0
     assert eng.metrics.counter("watchdog_timeouts") == 1
-
-
-def test_async_realization_recovers_down_the_ladder(small):
-    *_, x, ref = small
-    inj = FaultInjector()
-    inj.arm("output_nan", path="fused_full", times=1)
-    eng = _engine(small, inj)
-    rp = eng.infer(x, sync=False)
-    np.testing.assert_allclose(rp.result(), ref, atol=5e-4)
-    assert eng.metrics.counter("demotions") == 1
-    assert eng.health()["inflight"] == 0
 
 
 def test_whole_ladder_failure_is_down_not_raise(small):
@@ -229,24 +239,73 @@ def test_device_result_and_stuck_buffer_readiness():
     assert s.is_ready() and np.asarray(s).sum() == 6
 
 
-def test_serve_stream_warmup_and_metrics():
-    m = ServingMetrics()
-    lat, ev, wall = serve_stream(lambda x: x * 2,
-                                 [np.ones((4, 2), np.float32)] * 5,
-                                 warmup=2, metrics=m, device="cpu")
-    assert len(lat) == 3 and ev == 12 and wall > 0 and m.batches == 3
-    assert serve_stream(lambda x: x, [np.ones((1, 1))], warmup=3,
-                        device="cpu")[0] == []
+class _CountingEngine:
+    """An engine whose results count how many are dispatched and not yet
+    realized."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.bucket_sizes = eng.bucket_sizes
+        self.bucket_for = eng.bucket_for
+        self.outstanding = self.peak = 0
+
+    def infer(self, x, **kw):
+        pending = self.eng.infer(x, **kw)
+        self.outstanding += 1
+        self.peak = max(self.peak, self.outstanding)
+        spy = self
+
+        class Counted:
+            def result(self):
+                spy.outstanding -= 1
+                return pending.result()
+        return Counted()
 
 
-def test_serve_stream_defaults_to_the_card():
-    import inspect
-    assert inspect.signature(serve_stream).parameters["device"].default \
-        == "cuda"
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: nothing to refuse")
-    with pytest.raises(RuntimeError, match="cuda"):
-        serve_stream(lambda x: x, [np.ones((1, 1), np.float32)])
+@pytest.mark.parametrize("resilient", [False, True],
+                         ids=["core", "resilient"])
+def test_stream_keeps_two_in_flight_and_records_each_batch_once(
+        small, resilient):
+    cfg, params, x, ref = small
+    eng = (_engine(small) if resilient else
+           ServingEngine(params, cfg, forward="fused_full", device="cpu",
+                         max_batch=16))
+    spy = _CountingEngine(eng)
+    res = pump_stream(spy, [x] * 7, warmup=2)
+    assert spy.peak == STREAM_INFLIGHT == 2 and spy.outstanding == 0
+    assert eng.metrics.batches == 7 - 2 == len(res["latencies"])
+    assert res["events"] == eng.metrics.events == 25
+    assert res["bucket"] == 8 and res["wall_s"] > 0
+    snap = eng.metrics.snapshot()
+    assert snap["buckets"] == [8] and np.isfinite(snap["kgps"])
+    assert res["kgps"] == pytest.approx(25 / res["wall_s"] / 1e3)
+    if resilient:
+        assert eng.metrics.gauge_max("inflight") == 2
+        assert eng.health()["state"] == "healthy"
+        assert not eng.health()["counters"]
+
+
+@pytest.mark.parametrize("n", [0, 2, 3])
+def test_stream_no_longer_than_warmup_gives_empty_stats(small, n):
+    *_, x, _ = small
+    eng = _engine(small)
+    res = eng.run_stream([x] * n, warmup=3)
+    assert res["latencies"] == [] and res["events"] == 0
+    assert res["wall_s"] == 0.0 and np.isnan(res["kgps"])
+    assert res["bucket"] == (None if n == 0 else 8)
+    assert eng.metrics.batches == 0
+    assert np.isnan(eng.metrics.snapshot()["kgps"])
+    assert eng.health()["state"] == "healthy"
+
+
+def test_stream_refuses_mixed_and_oversized_batches(small):
+    *_, x, _ = small
+    eng = _engine(small)
+    with pytest.raises(ValueError, match="differ in size"):
+        eng.run_stream([x, x[:3]])
+    with pytest.raises(ValueError, match="exceeds the top bucket"):
+        eng.run_stream([np.concatenate([x] * 4)] * 2)
+    assert eng.metrics.batches == 0
 
 
 # -- the CLI --------------------------------------------------------------
