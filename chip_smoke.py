@@ -3935,17 +3935,14 @@ def main() -> int:
         spills.update({f: e.spill_bytes
                        for f, e in KA.parse_ptxas(log).items()})
     # the register-resident designs at jedi_30p (RW 20, one sender tile)
-    # and jedi_50p (RW 64, two tiles), and B2's rows design (one kernel per
-    # activation)
+    # and jedi_50p (B1's tile design, B3's warp design at RW 64), and B2's
+    # rows design (one kernel per activation)
     rows = sorted(fn for fn in spills
                   if fn.startswith("jedi_linear_rows_kernel<"))
     check(len(rows) == len(ACTIVATIONS),
           f"jedi_linear_rows_kernel: {len(rows)} instances built, one per "
           f"activation ({len(ACTIVATIONS)})")
-    for fn in ("jedi_fused_full_warp_kernel<20,0>",
-               "jedi_fused_full_warp_kernel<64,1>",
-               "jedi_edge_block_warp_kernel<20,0>",
-               "jedi_edge_block_warp_kernel<64,1>", *rows):
+    for fn in (*KA.NO_SPILL, *rows):
         check(spills.get(fn) == 0,
               f"{fn}: {spills.get(fn, 'no report of')} bytes of spills")
 
@@ -4018,6 +4015,10 @@ def main() -> int:
             if act != "relu":
                 case(k, f"jedi_30p fp32 {act}", c30.with_(activation=act), 13)
     case(b1, "jedi_50p fp32", c50, 13)
+    case(b1, "jedi_50p fp32", c50, 1000)
+    case(b1, "jedi_50p bf16", c50.with_(compute_dtype="bfloat16"), 257,
+         tol=TOL_BF16)
+    case(b1, "jedi_50p int8", c50, 257, quant=True)
     case(b1, "jedi_tracks_128 fp32 S=48", c128, 13, block_s=48)
     for b in (13, 257):
         case(b2, "jedi_50p fp32", c50, b)
@@ -4197,6 +4198,34 @@ def main() -> int:
           f"{ms128:.4f} ms/batch; bound {bound128:.4f} ms ({ops_ / 1e9:.4f} "
           f"GFLOP)  [{card}]")
     rows[1]["tracks_128"] = {"ms": ms128, "bound_ms": bound128}
+    # B1 at jedi_50p, B = 1,024 (its tile design), beside its bound and
+    # its plain version
+    params = inet.init(0, c50, scale="lecun", device=dev)
+    x = torch.from_numpy(make_jets(np.random.RandomState(1), 1024,
+                                   c50.n_objects)[0]).to(dev)
+    bound = b1.jedi.bind(params, c50)
+
+    def run50():
+        return b1.jedi.run(x, bound, c50, None)
+
+    ms50 = time_ms(run50, 50)
+    prof50 = profiled_ms(run50, "jedi_fused_full")
+    graph50 = graph_ms(run50)
+    plain50 = time_ms(lambda: b1.jedi.plain(x, bound, c50, None), 5)
+    ops_, nbytes = fused_full_work(c50, 1024)
+    bound50 = max(ops_ / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    lay50 = b1.jedi.layout(c50, params, None)
+    shown = "no device time" if prof50 is None else f"{prof50:.4f} ms"
+    print(f"  fused_full at jedi_50p B=1024 fp32 ({lay50.design} design, "
+          f"{lay50.threads} threads, {lay50.smem_bytes} B shared memory): "
+          f"{ms50:.4f} ms/batch, device: torch.profiler {shown}, CUDA graph "
+          f"{graph50:.4f} ms; bound {bound50:.4f} ms ({ops_ / 1e9:.4f} "
+          f"GFLOP; the graph's time at {100 * bound50 / graph50:.1f}% of "
+          f"its roofline); plain "
+          f"{plain50:.4f} ms  [{card}]")
+    rows[0]["jedi_50p"] = {"ms": ms50, "device_ms_profiler": prof50,
+                           "device_ms_graph": graph50, "bound_ms": bound50,
+                           "plain_ms": plain50, "design": lay50.design}
     # B3 against the unfused oracle (explicit B of every edge, summed by
     # torch.sum), beside its plain version's check in phase 2
     xk, bound, cfg = main_args[b3.name]

@@ -82,10 +82,10 @@ FM_THREADS = 256
 
 #: The register-resident designs phase 1 of ``chip_smoke.py`` requires
 #: spill-free: B1's and B3's warp design at jedi_30p (RW 20, one sender
-#: tile) and jedi_50p (RW 64, two tiles), and every instance of B2's rows
-#: design (:data:`NO_SPILL_PREFIX`).
+#: tile), B1's tile design and B3's warp design at jedi_50p (B3: RW 64, two
+#: tiles), and every instance of B2's rows design (:data:`NO_SPILL_PREFIX`).
 NO_SPILL = ("jedi_fused_full_warp_kernel<20,0>",
-            "jedi_fused_full_warp_kernel<64,1>",
+            "jedi_fused_full_tile_kernel<12>",
             "jedi_edge_block_warp_kernel<20,0>",
             "jedi_edge_block_warp_kernel<64,1>")
 NO_SPILL_PREFIX = "jedi_linear_rows_kernel<"
@@ -247,11 +247,17 @@ def launchers() -> dict[Callable, Launcher]:
             f"{name}<{lay.mw},{int(cfg.n_objects > 32)}>"
             if lay.design == "warp" else team)
 
+    def b1_function(lay, cfg):
+        if lay.design == "tile":       # M edges a thread
+            return f"jedi_fused_full_tile_kernel<{lay.mw}>"
+        return warp("jedi_fused_full_warp_kernel",
+                    "jedi_fused_full_kernel")(lay, cfg)
+
     b1 = Launcher(
         "B1",
         lambda cfg, w: fj.plan_full(cfg.n_objects, w.n_features,
                                     *w.widths()),
-        warp("jedi_fused_full_warp_kernel", "jedi_fused_full_kernel"),
+        b1_function,
         lambda bound: bound)
     b2 = Launcher(
         "B2",

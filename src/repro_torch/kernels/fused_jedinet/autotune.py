@@ -6,7 +6,9 @@ no f_O / phi_O regions) and by the whole network
 (``kernels/csrc/fused_jedinet_full.cu``, B1) where f_R is wider than a
 lane's registers or a sender tile is pinned; the *warp* design of both
 (:func:`plan_full` for B1, :func:`plan_edge` for B3: one thread per
-edge, a block walking events) has its plans at the end of this module.
+edge, a block walking events) and B1's *tile* design (f_R wider than 32:
+a block's tile of edges through f_R as register-tiled outer products)
+have their plans at the end of this module.
 The team layout gives one block ``events_per_block`` whole events.
 Everything a block touches lives in its dynamic shared memory, in the
 regions below (fp32 words, every region a multiple of 4 words so
@@ -124,7 +126,7 @@ class Layout:
     smem_words: int
     per_event_bytes: int    # bytes one more event adds
     reserved_bytes: int     # bytes before the first event
-    design: str = "team"    # "team", "warp" (B1, B3) or "rows" (B2)
+    design: str = "team"    # "team", "warp" (B1, B3), "tile" (B1), "rows" (B2)
 
     @property
     def smem_bytes(self) -> int:
@@ -294,26 +296,103 @@ def _warp_layout(n_o, p, entries, d_e, d_o, fr_widths, fo_widths,
                   off, 4 * per_event, 4 * (off - per_event), design="warp")
 
 
+# ---- B1's tile design ------------------------------------------------------
+#: Edges a thread of the tile design takes in f_R's middle layers (``M``
+#: in the source; one float4 of outputs, ``kTileN``, beside them), the
+#: edge groups side by side on neighbouring lanes (``kTileLanes``: a tile
+#: holds a multiple of them), the most threads of its block
+#: (``kTileThreads``: the compute warps and the readout warp), and the
+#: widest f_R it leaves to the warp design: above 32 the warp design falls
+#: to one receiver a lane at ``RW`` 64.
+TILE_M = 12
+TILE_N = 4
+TILE_LANES = 4
+TILE_THREADS = 512
+TILE_ABOVE = 32
+
+
+def tile_stride(t: int) -> int:
+    """Words between two feature rows of a tile of ``t`` edges (a multiple
+    of 4): ``t`` or ``t + 4``, whichever is 4 past a multiple of 8, so the
+    epilogue's float4 stores to rows 4 apart (neighbouring output groups
+    of a quarter warp) fall 16 banks apart."""
+    return t if t % 8 == 4 else t + 4
+
+
+def _tile_layout(n_o, p, entries, d_e, d_o, fr_widths, fo_widths,
+                 phi_widths, budget_bytes) -> Layout | None:
+    """The largest tile of ``TILE_M``-edge groups, a multiple of
+    :data:`TILE_LANES` of them, whose middle layers take one output group
+    per compute thread and whose shared memory fits; None where no tile
+    fits."""
+    n_fr = len(fr_widths) + 1                     # w1r, w1s, the rest
+    rows = max([entries[0].out_p] + [e.out_p for e in entries[2:n_fr - 1]])
+    groups = rows // TILE_N                       # output groups a layer
+    de_p, do_p = pad4(d_e), pad4(d_o)
+    ust = entries[0].out_p | 1                    # odd: conflict-free rows
+    fst = max([pad4(p + d_e)] + [e.out_p for e in
+                                 entries[n_fr:n_fr + len(fo_widths)]]) | 1
+    half = pad4(max(d_o, *phi_widths))
+    w_words, b_words = weight_words(entries)
+    n_eg = min((TILE_THREADS - WARP) // groups,
+               -(-n_o * (n_o - 1) // TILE_M)) // TILE_LANES * TILE_LANES
+    for eg in range(n_eg, 0, -TILE_LANES):
+        t = TILE_M * eg
+        ts = tile_stride(t)
+        compute = -(-eg * groups // WARP) * WARP
+        offsets, off = region_offsets(
+            [("w", w_words), ("b", b_words), ("x", pad4(n_o * p)),
+             ("part", pad4(n_o * ust)), ("us", pad4(n_o * ust)),
+             ("ebar", n_o * de_p), ("obuf", 2 * n_o * do_p),
+             ("slot", 2 * half), ("osum", t * de_p),
+             ("pool", pad4(max(rows * ts, 2 * n_o * fst)))])
+        if 4 * off > budget_bytes:
+            continue
+        per_event = off - w_words - b_words - 2 * half
+        return Layout(1, t, ts, 1, compute + WARP, TILE_M, 2 * half,
+                      offsets, off, 4 * per_event, 4 * (off - per_event),
+                      design="tile")
+    return None
+
+
 def plan_full(n_objects: int, n_features: int, fr_widths, fo_widths,
               phi_widths, *, block_s: int | None = None,
               budget_bytes: int = SMEM_BLOCK_BYTES) -> Layout:
-    """B1's launch: the warp design (one thread per edge, one warp per
-    receiver, one event per block at a time) where :func:`full_design`
-    says so and its shared memory fits, else the team layout of
-    :func:`plan_launch`.  Layout fields of the warp design: ``block_s``
-    is the 32-sender lane tile, ``ks`` the receivers per compute warp
-    (taken :data:`WARP_RPL` at a time), ``threads`` the compute warps'
-    and the readout warp's, ``mw`` the register width, ``slot_stride``
-    the readout warp's two activation buffers; ``ebar`` holds f_O's two
-    activation buffers (a row per node), ``obuf`` two events' f_O
-    outputs and ``pool`` f_R's layers after the first, zero-padded to
-    ``mw`` wide."""
+    """B1's launch.  Where :func:`full_design` says ``"warp"``: the tile
+    design (a block's tile of edges through f_R as register-tiled outer
+    products, one event per block at a time) where f_R is wider than
+    :data:`TILE_ABOVE`, else the warp design (one thread per edge, one
+    warp per receiver, one event per block at a time); either where its
+    shared memory fits, else the team layout of :func:`plan_launch`.
+
+    Layout fields of the warp design: ``block_s`` is the 32-sender lane
+    tile, ``ks`` the receivers per compute warp (taken :data:`WARP_RPL`
+    at a time), ``threads`` the compute warps' and the readout warp's,
+    ``mw`` the register width, ``slot_stride`` the readout warp's two
+    activation buffers; ``ebar`` holds f_O's two activation buffers (a
+    row per node), ``obuf`` two events' f_O outputs and ``pool`` f_R's
+    layers after the first, zero-padded to ``mw`` wide.
+
+    Of the tile design: ``block_s`` is the tile's edges, ``ks`` the
+    words between its feature rows (:func:`tile_stride`), ``mw`` the
+    edges a thread takes (:data:`TILE_M`), ``threads`` and
+    ``slot_stride`` as in the warp design; ``pool`` holds the tile,
+    feature-major, and later f_O's two activation buffers, ``osum`` the
+    tile's f_R outputs (an edge a row), ``ebar`` the receivers' running
+    sums."""
     n_o, p = int(n_objects), int(n_features)
     if full_design(fr_widths, block_s) == "warp":
         entries = kernel_entries(p, fr_widths, fo_widths, phi_widths)
-        lay = _warp_layout(n_o, p, entries, fr_widths[-1], fo_widths[-1],
-                           fr_widths, fo_widths, phi_widths)
-        if lay.smem_bytes <= budget_bytes:
+        if max(fr_widths) > TILE_ABOVE:
+            lay = _tile_layout(n_o, p, entries, fr_widths[-1],
+                               fo_widths[-1], fr_widths, fo_widths,
+                               phi_widths, budget_bytes)
+        else:
+            lay = _warp_layout(n_o, p, entries, fr_widths[-1],
+                               fo_widths[-1], fr_widths, fo_widths,
+                               phi_widths)
+            lay = lay if lay.smem_bytes <= budget_bytes else None
+        if lay is not None:
             return lay
     return plan_launch(n_o, p, fr_widths, fo_widths, phi_widths,
                        block_s=block_s, budget_bytes=budget_bytes)

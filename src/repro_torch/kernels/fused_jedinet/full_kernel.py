@@ -10,7 +10,9 @@ and what bounds it).  This module holds, side by side:
   ``torch.empty`` and launches the kernel on the current stream through
   ``ctypes`` (raising on a non-zero ``cudaError_t``); on a CPU tensor it
   runs the plain version.  It never catches and falls back.
-  ``fused_forward_full_kernel_call.launches`` counts the launches.
+  ``fused_forward_full_kernel_call.launches`` counts the launches, and
+  ``.launches_by_design`` the launches of each design (``"warp"``,
+  ``"tile"``, ``"team"``).
 * :func:`fused_forward_full_plain` — the same function in plain PyTorch,
   with the kernel's sender tiling and self-edge masking: the CPU tests
   use it, and ``chip_smoke.py`` holds the kernel against it on the card.
@@ -132,21 +134,24 @@ def mlp_plain(h, arrays, scales, act, bf16: bool):
 
 
 def edge_sum_plain(xf, fr_arrays, scales, act, bf16: bool,
-                   block_s: int | None = None, *, tree: bool = False):
+                   block_s: int | None = None, *, order: str = "tiles"):
     """Ebar = sum over senders s != r of f_R(x_r || x_s): (B, N_o, D_e).
 
     The kernels' edge block in plain PyTorch: ``xf`` the (B, N_o, P)
     events in fp32 (holding compute-dtype values); f_R's first layer
     split into ``u_r`` / ``u_s`` (``fr_arrays = [w1r, w1s, b1, w2, b2,
     ...]``, ``scales`` one per weight tensor, None: not int8); the
-    self-edge masked out before the sum.  Senders are summed as the team
-    layout sums them, ``block_s`` at a time (all at once by default), or,
-    with ``tree``, in B1 warp design's order (:func:`tree_sender_sum`).
+    self-edge masked out before the sum.  Senders are summed in the
+    ``order`` of a design: ``"tiles"`` as the team layout sums them,
+    ``block_s`` at a time (all at once by default); ``"tree"`` as the
+    warp design (:func:`tree_sender_sum`); ``"serial"`` as B1's tile
+    design (:func:`serial_sender_sum`).
     """
     w1r, w1s, b1, rest = fr_arrays[0], fr_arrays[1], fr_arrays[2], \
         fr_arrays[3:]
     bsz, n_o, _ = xf.shape
-    bs = n_o if block_s is None or tree else max(1, min(int(block_s), n_o))
+    bs = n_o if block_s is None or order != "tiles" \
+        else max(1, min(int(block_s), n_o))
     u_r = mmq(xf, w1r, scales[0], bf16)                     # (B, N_o, H1)
     d_e = (rest[-2] if rest else w1r).shape[-1]
     acc = xf.new_zeros((bsz, n_o, d_e))
@@ -160,8 +165,10 @@ def edge_sum_plain(xf, fr_arrays, scales, act, bf16: bool,
         send = torch.arange(s0, s0 + xs.shape[1], device=xf.device)[None, :]
         keep = (recv != send)[None, :, :, None]
         h = torch.where(keep, h, torch.zeros_like(h))
-        if tree:
+        if order == "tree":
             return tree_sender_sum(h)
+        if order == "serial":
+            return serial_sender_sum(h)
         acc = acc + h.sum(2)
     return acc
 
@@ -186,6 +193,21 @@ def tree_sender_sum(h):
     return acc[:, :, 0]
 
 
+def serial_sender_sum(h):
+    """(B, N_o, S, D) -> (B, N_o, D), summed over senders as B1's tile
+    design sums them: one running sum per receiver from zero, the
+    senders added one at a time in ascending order (the self-edge,
+    zeroed, adds nothing)."""
+    acc = torch.zeros_like(h[:, :, 0])
+    for s in range(h.shape[2]):
+        acc = acc + h[:, :, s]
+    return acc
+
+
+#: The sender order of each of B1's designs (:func:`edge_sum_plain`).
+SUM_ORDERS = {"team": "tiles", "warp": "tree", "tile": "serial"}
+
+
 def readout_plain(xf, ebar, fo_arrays, phi_arrays, s_fo, s_phi, act,
                   bf16: bool):
     """C = [x || Ebar], f_O per node, the node sum, phi_O: logits fp32."""
@@ -207,9 +229,9 @@ def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
     scalar per weight tensor ``[w1r, w1s, w2.., fo.., phi..]`` for int8
     weights, else None.  The self-edge is masked out before the sum, and
     the senders are summed in the order of the design the kernel runs
-    for these widths (:func:`~repro_torch.kernels.fused_jedinet.autotune.full_design`):
-    the warp design's tree, or the team layout's sender tiles of
-    ``block_s`` (all at once by default).
+    for these shapes (:func:`~repro_torch.kernels.fused_jedinet.autotune.plan_full`):
+    the warp design's tree, the tile design's running sum, or the team
+    layout's sender tiles of ``block_s`` (all at once by default).
     """
     bf16 = x.dtype == torch.bfloat16
     act = ACTIVATIONS[activation]
@@ -219,9 +241,12 @@ def fused_forward_full_plain(x, fr_arrays, fo_arrays, phi_arrays, *,
     xf = x.float()
     fr_w = [int(fr_arrays[0].shape[-1])] + [int(w.shape[-1])
                                             for w in fr_arrays[3::2]]
-    tree = autotune.full_design(fr_w, block_s) == "warp"
+    fo_w = [int(w.shape[-1]) for w in fo_arrays[0::2]]
+    phi_w = [int(w.shape[-1]) for w in phi_arrays[0::2]]
+    design = autotune.plan_full(x.shape[1], x.shape[2], fr_w, fo_w, phi_w,
+                                block_s=block_s).design
     ebar = edge_sum_plain(xf, fr_arrays, s[:n_fr_w], act, bf16, block_s,
-                          tree=tree)
+                          order=SUM_ORDERS[design])
     return readout_plain(xf, ebar, fo_arrays, phi_arrays,
                          s[n_fr_w:n_fr_w + n_fo], s[n_fr_w + n_fo:], act,
                          bf16)
@@ -400,6 +425,11 @@ def launch(fn, symbol: str, x: torch.Tensor, weights: KernelWeights,
             f"{4 * head['smem_words']} B shared memory)")
 
 
+#: Each of B1's designs' entry point in the library (``<symbol>_launch``).
+SYMBOLS = {"team": "jedi_fused_full", "warp": "jedi_fused_full_warp",
+           "tile": "jedi_fused_full_tile"}
+
+
 def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
                                    *, activation: str, n_targets: int,
                                    block_s: int | None = None):
@@ -425,12 +455,15 @@ def fused_forward_full_kernel_call(x: torch.Tensor, weights: KernelWeights,
         n_o, n_targets)
     out = torch.empty((x.shape[0], n_targets), dtype=torch.float32,
                       device=x.device)
-    symbol = "jedi_fused_full_warp" if header[0].design == "warp" \
-        else "jedi_fused_full"
+    design = header[0].design
+    symbol = SYMBOLS[design]
     launch(load_launcher(LIB_NAME, SOURCES, symbol), symbol, x, weights,
            out, header, activation)
     fused_forward_full_kernel_call.launches += 1
+    by_design = fused_forward_full_kernel_call.launches_by_design
+    by_design[design] = by_design.get(design, 0) + 1
     return out
 
 
 fused_forward_full_kernel_call.launches = 0
+fused_forward_full_kernel_call.launches_by_design = {}

@@ -49,11 +49,12 @@ def fused_edge_block_plain(x, fr_arrays, *, activation: str,
     n_weights = 2 + (len(fr_arrays) - 3) // 2
     fr_w = [int(fr_arrays[0].shape[-1])] + [int(w.shape[-1])
                                             for w in fr_arrays[3::2]]
-    tree = autotune.plan_edge(x.shape[1], x.shape[2], fr_w,
-                              block_s=block_s).design == "warp"
+    design = autotune.plan_edge(x.shape[1], x.shape[2], fr_w,
+                                block_s=block_s).design
     return FK.edge_sum_plain(x.float(), fr_arrays, [None] * n_weights,
                              ACTIVATIONS[activation],
-                             x.dtype == torch.bfloat16, block_s, tree=tree)
+                             x.dtype == torch.bfloat16, block_s,
+                             order=FK.SUM_ORDERS[design])
 
 
 def fused_edge_block_kernel_call(x: torch.Tensor,

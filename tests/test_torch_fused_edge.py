@@ -285,7 +285,9 @@ def test_plan_edge_picks_b1s_design(n_o, fr, block_s, design):
     pool = (len(fr) - 2) * (rw * rw + rw) + rw * 8 + 8
     assert lay.smem_words - lay.offsets["pool"] == autotune.pad4(pool)
     full = autotune.plan_full(n_o, 16, fr, [20, 24], [20, 5])
-    assert full.design == "warp" and lay.smem_bytes < full.smem_bytes
+    wide = max(fr) > autotune.TILE_ABOVE      # B1 takes its tile design
+    assert full.design == ("tile" if wide else "warp")
+    assert lay.smem_bytes < full.smem_bytes
 
 
 ACT_NP = {"relu": lambda v: np.maximum(v, np.float32(0))}

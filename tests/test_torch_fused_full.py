@@ -145,22 +145,69 @@ def _warp_design_emulation(x, bound, act):
 ACT_NP = {"relu": lambda v: np.maximum(v, np.float32(0))}
 
 
-@pytest.mark.parametrize("cfg,quant", [("30p", False), ("50p", False),
-                                       ("30p", True)])
-def test_warp_design_sender_order_matches_plain_and_jax(cfg, quant):
-    """B1's warp-per-receiver design (one lane per sender, sender tiles of
-    32 at 50p, the xor-tree sender sum), emulated in numpy, against the
-    plain version (which sums in the same order) and the JAX fused_full."""
+def _tile_design_emulation(x, bound, act, tile):
+    """B1's tile design step for step in numpy fp32: u_r and u_s per node;
+    the event's edges receiver-major over s != r, ``tile`` at a time;
+    f_R on act((u_r + u_s) + b1) for the tile's edges; each receiver's
+    running sum, started from zero at its first edge and carried across
+    tiles, adds its senders in ascending order; f_O per node on [x_r ||
+    Ebar_r], the node sum in node order, phi_O."""
+    f = ACT_NP[act]
+    fr = [t.numpy().astype(np.float32) for t in bound.fr]
+    fo = [t.numpy().astype(np.float32) for t in bound.fo]
+    phi = [t.numpy().astype(np.float32) for t in bound.phi]
+    sc = [np.float32(1.0)] * 64 if bound.scales is None else \
+        [np.float32(float(v)) for v in bound.scales]
+
+    def mlp(h, arrays, scales):
+        n = len(arrays) // 2
+        for i in range(n):
+            h = (h @ arrays[2 * i]) * scales[i] + arrays[2 * i + 1]
+            if i < n - 1:
+                h = f(h)
+        return h
+
+    n_fr_w = 2 + (len(fr) - 3) // 2
+    n_fo = len(fo) // 2
+    out = []
+    for xe in x.astype(np.float32):
+        n_o = xe.shape[0]
+        n_s = n_o - 1
+        u_r, u_s = (xe @ fr[0]) * sc[0], (xe @ fr[1]) * sc[1]
+        recv = np.repeat(np.arange(n_o), n_s)
+        j = np.tile(np.arange(n_s), n_o)
+        send = j + (j >= recv)
+        ebar = np.zeros((n_o, fr[-2].shape[1]), np.float32)
+        for g0 in range(0, n_o * n_s, tile):
+            r, s = recv[g0:g0 + tile], send[g0:g0 + tile]
+            h = f((u_r[r] + u_s[s]) + fr[2])
+            e = mlp(h, fr[3:], sc[2:n_fr_w])
+            for t in range(len(r)):
+                first = (g0 + t) % n_s == 0
+                ebar[r[t]] = (np.float32(0) if first else ebar[r[t]]) + e[t]
+        node = mlp(np.concatenate([xe, ebar], 1), fo,
+                   sc[n_fr_w:n_fr_w + n_fo])
+        osum = np.zeros(node.shape[1], np.float32)
+        for r in range(n_o):
+            osum = osum + node[r]
+        out.append(mlp(osum, phi, sc[n_fr_w + n_fo:]))
+    return np.stack(out)
+
+
+def _held_against_plain_and_jax(cfg, quant, design, emulate):
+    """``emulate(x, bound, lay, activation)`` on 2 events of ``cfg``, where B1's plan
+    is ``design``, against the plain version (2e-6 of scale: it sums in
+    the same order) and JAX's fused_full (5e-4)."""
     jcfg, tcfg, jp, tp, x = _setup(cfg, 2)
-    assert autotune.plan_full(
+    lay = autotune.plan_full(
         tcfg.n_objects, tcfg.n_features, *[
-            shared.mlp_widths(tp[k]) for k in ("fr", "fo", "phi")]
-    ).design == "warp"
+            shared.mlp_widths(tp[k]) for k in ("fr", "fo", "phi")])
+    assert lay.design == design
     if quant:
         jp = jax.tree_util.tree_map(np.asarray, jint8.quantize_params_int8(jp))
         tp = tint8.quantize_params_int8(tp)
     bound = ops.bind_full(tp, tcfg)
-    emu = _warp_design_emulation(x, bound, tcfg.activation)
+    emu = emulate(x, bound, lay, tcfg.activation)
     plain = FK.fused_forward_full_plain(
         torch.from_numpy(x), bound.fr, bound.fo, bound.phi,
         activation=tcfg.activation, scales=bound.scales).numpy()
@@ -170,6 +217,28 @@ def test_warp_design_sender_order_matches_plain_and_jax(cfg, quant):
         else jinet.forward_fused_full
     want = np.asarray(forward(jp, jcfg, jnp.asarray(x), interpret=True))
     np.testing.assert_allclose(emu, want, rtol=0, atol=5e-4 * scale)
+
+
+@pytest.mark.parametrize("cfg,quant", [("30p", False), ("30p", True)])
+def test_warp_design_sender_order_matches_plain_and_jax(cfg, quant):
+    """B1's warp-per-receiver design (one lane per sender, the xor-tree
+    sender sum), emulated in numpy, against the plain version (which sums
+    in the same order) and the JAX fused_full."""
+    _held_against_plain_and_jax(
+        cfg, quant, "warp",
+        lambda x, bound, lay, act: _warp_design_emulation(x, bound, act))
+
+
+@pytest.mark.parametrize("cfg,quant", [("50p", False), ("50p", True)])
+def test_tile_design_sender_order_matches_plain_and_jax(cfg, quant):
+    """B1's tile design at 50p (tiles of the plan's edges, each
+    receiver's running sum in sender order across tiles), emulated in
+    numpy, against the plain version (which sums in the same order) and
+    the JAX fused_full."""
+    _held_against_plain_and_jax(
+        cfg, quant, "tile",
+        lambda x, bound, lay, act: _tile_design_emulation(x, bound, act,
+                                                          lay.block_s))
 
 
 def test_tree_sender_sum_is_the_xor_butterfly():
@@ -275,18 +344,19 @@ def test_int8_pack_keeps_int8_and_shares_w1_scale():
 
 @pytest.mark.parametrize("n_o,fr,fo,phi,block_s,design", [
     (30, [20, 20, 20, 8], [20, 20, 20, 24], [20, 20, 20, 5], None, "warp"),
-    (50, [50, 50, 50, 8], [50, 50, 50, 24], [50, 50, 50, 5], None, "warp"),
+    (50, [50, 50, 50, 8], [50, 50, 50, 24], [50, 50, 50, 5], None, "tile"),
     (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], None, "team"),
     (128, [128, 128, 8], [64, 64, 24], [32, 32, 5], 48, "team"),
     (13, [16, 12], [10], [12, 5], 5, "team"),
 ])
 def test_layout_fits_and_is_aligned(n_o, fr, fo, phi, block_s, design):
-    """B1's plan: the warp design where f_R fits a lane's registers and no
-    sender tile is pinned, else the team layout; either fits the opt-in
-    shared memory with every region 16-byte aligned."""
+    """B1's plan: where f_R fits a lane's registers and no sender tile is
+    pinned, the warp design up to width 32 and the tile design above it,
+    else the team layout; each fits the opt-in shared memory (227 KB)
+    with every region 16-byte aligned."""
     lay = autotune.plan_full(n_o, 16, fr, fo, phi, block_s=block_s)
     assert lay.design == design
-    assert lay.smem_bytes <= shared.SMEM_BLOCK_BYTES
+    assert lay.smem_bytes <= shared.SMEM_BLOCK_BYTES == 227 * 1024
     assert lay.threads % 32 == 0 and lay.threads % lay.team == 0
     assert lay.threads <= shared.MAX_THREADS_PER_BLOCK
     offs = [lay.offsets[k] for k in lay.offsets]
@@ -310,6 +380,32 @@ def test_layout_fits_and_is_aligned(n_o, fr, fo, phi, block_s, design):
         ust = autotune.pad4(fr[0]) | 1
         assert lay.offsets["us"] - lay.offsets["part"] >= n_o * ust
         return
+    if design == "tile":
+        m, rows = lay.mw, max(map(autotune.pad4, fr[:-1]))
+        assert m == autotune.TILE_M and lay.block_s % m == 0
+        assert lay.block_s <= -(-n_o * (n_o - 1) // m) * m
+        assert lay.ks in (lay.block_s, lay.block_s + 4) and lay.ks % 8 == 4
+        # one output group of the widest layer per compute thread
+        compute, groups = lay.threads - 32, lay.block_s // m
+        assert groups % autotune.TILE_LANES == 0
+        assert groups * (rows // 4) <= compute
+        assert compute - groups * (rows // 4) < 32
+        assert lay.threads <= autotune.TILE_THREADS
+        assert lay.team == 1 and lay.events_per_block == 1
+        assert lay.batch_bytes == 0
+        assert lay.slot_stride // 2 >= max(fo[-1], *phi)
+        assert set(lay.offsets) == {"w", "b", "x", "part", "us", "ebar",
+                                    "obuf", "slot", "osum", "pool"}
+        ust = autotune.pad4(fr[0]) | 1
+        assert lay.offsets["us"] - lay.offsets["part"] >= n_o * ust
+        assert lay.offsets["obuf"] - lay.offsets["ebar"] \
+            >= n_o * autotune.pad4(fr[-1])
+        assert lay.offsets["pool"] - lay.offsets["osum"] \
+            >= lay.block_s * autotune.pad4(fr[-1])
+        fst = max(autotune.pad4(16 + fr[-1]), *map(autotune.pad4, fo)) | 1
+        pool = lay.smem_words - lay.offsets["pool"]
+        assert pool >= rows * lay.ks and pool >= 2 * n_o * fst
+        return
     assert lay == autotune.plan_launch(n_o, 16, fr, fo, phi, block_s=block_s)
     assert lay.team in (1, 2, 4, 8, 16, 32)
     assert lay.slot_stride % 2 == 1
@@ -318,6 +414,28 @@ def test_layout_fits_and_is_aligned(n_o, fr, fo, phi, block_s, design):
     assert offs == sorted(offs)
     if block_s is not None:
         assert lay.block_s == block_s
+
+
+@pytest.mark.parametrize("plan,n_o,fr,design", [
+    ("full", 30, [20, 20, 20, 8], "warp"),
+    ("full", 50, [50, 50, 50, 8], "tile"),
+    ("full", 50, [20, 20, 20, 8], "warp"),
+    ("full", 128, [128, 128, 8], "team"),
+    ("edge", 30, [20, 20, 20, 8], "warp"),
+    ("edge", 50, [50, 50, 50, 8], "warp"),
+])
+def test_tile_design_takes_only_b1_above_width_32(plan, n_o, fr, design):
+    """The tile design is B1's alone, and only where f_R is wider than 32
+    and fits the warp design's test: B1 at 30p (and at 50 nodes of 30p's
+    widths) keeps the warp design, tracks_128 the team layout, and B3
+    (``plan_edge``, which B2's and B3's CPU tests share) the warp design
+    at 50p."""
+    if plan == "full":
+        lay = autotune.plan_full(n_o, 16, fr, [50, 24], [50, 5])
+    else:
+        lay = autotune.plan_edge(n_o, 16, fr)
+    assert lay.design == design
+    assert autotune.full_design(fr) == ("team" if max(fr) > 64 else "warp")
 
 
 def test_layout_raises_when_nothing_fits():

@@ -291,6 +291,9 @@ WARP20 = "jedi_fused_full_warp_kernel<20,0>"
     ("_ZN54_GLOBAL__N__0737ce60_21_fused_jedinet_full_cu_dcff5cd027jedi_"
      "fused_full_warp_kernelILi64ELb1EEEvNS_4ArgsE",
      "jedi_fused_full_warp_kernel<64,1>"),
+    ("_ZN54_GLOBAL__N__0737ce60_21_fused_jedinet_full_cu_dcff5cd027jedi_"
+     "fused_full_tile_kernelILi12EEEvNS_4ArgsE",
+     "jedi_fused_full_tile_kernel<12>"),
     ("_ZN54_GLOBAL__N__0737ce60_21_fused_jedinet_full_cu_dcff5cd022jedi_"
      "fused_full_kernelENS_4ArgsE", "jedi_fused_full_kernel"),
     ("_ZN52_GLOBAL__N__883adb09_19_jedi_linear_full_cu_274957c123jedi_"
